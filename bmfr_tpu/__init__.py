@@ -1,11 +1,11 @@
-"""bmfr_tpu — a TPU-native rebuild of BMFR (Blockwise Multi-Order Feature
+"""bmfr_tpu — a JAX rebuild of BMFR (Blockwise Multi-Order Feature
 Regression) real-time path-tracing denoising.
 
-Reference behavior: tcantenot/bmfr (OpenCL), re-designed TPU-first in
-JAX/Pallas: the five-kernel OpenCL chain (opencl/bmfr.cl) becomes pure
-functions over channels-first image planes, the per-workgroup block fit
-becomes batched linear algebra on the MXU, and the frame recurrence becomes
-a ``jax.lax.scan``.
+Reference behavior: tcantenot/bmfr (OpenCL), re-designed in JAX/Pallas: the
+five-kernel OpenCL chain (opencl/bmfr.cl) becomes pure functions over
+channels-first image planes, the per-workgroup block fit becomes batched
+linear algebra (or one fused GPU program per block), and the frame
+recurrence becomes a ``jax.lax.scan``.
 """
 
 from .config import BMFRConfig, DEFAULT_CONFIG

@@ -24,7 +24,7 @@ from .metrics import psnr
 
 
 def _build_argparser():
-    p = argparse.ArgumentParser(description="BMFR-TPU denoiser")
+    p = argparse.ArgumentParser(description="BMFR denoiser")
     p.add_argument("--scene", help="scene directory (TUNI layout)")
     p.add_argument("--synthetic", action="store_true",
                    help="run on the built-in synthetic scene")
@@ -40,13 +40,11 @@ def _build_argparser():
     p.add_argument("--no-output", action="store_true")
     p.add_argument("--solver", default="householder",
                    choices=["householder", "cholesky"])
-    p.add_argument("--fitter-impl", default="auto",
-                   choices=["auto", "xla", "pallas", "pallas_direct"])
+    p.add_argument("--fitter-impl", default="xla", choices=["xla", "fused"])
     p.add_argument("--tmp-dtype", default="float32",
                    choices=["float32", "float16", "bfloat16"])
     p.add_argument("--warp-mode", default="float32",
-                   choices=["float32", "packed_bf16", "packed_x_bf16",
-                            "pallas"])
+                   choices=["float32", "packed_bf16", "packed_x_bf16"])
     p.add_argument("--residual-dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--block-edge", type=int, default=32)
@@ -113,7 +111,7 @@ def main(argv=None):
     import jax.numpy as jnp
 
     from . import FrameInputs, TemporalState, make_denoise_frame
-    from .profiling import ProfilingInfo, print_report
+    from .profiling import ProfilingInfo, print_report, timed
 
     print("Initialize.")
     devices = jax.devices()
@@ -204,15 +202,11 @@ def main(argv=None):
         )
         cams = jnp.asarray(data["camera_matrices"])
         offs = jnp.asarray(data["pixel_offsets"])
-        from .profiling import force
 
         run = jax.jit(lambda s, c, o: denoise_sequence(cfg, s, c, o))
-        out = run(seq, cams, offs)
-        force(out)  # compile+run (readback fence; see profiling.force)
-        t1 = time.perf_counter()
-        out = run(seq, cams, offs)
-        force(out)
-        prof.append((time.perf_counter() - t1) * 1e3 / T)
+        timed(run, seq, cams, offs)   # compile + run
+        secs, out = timed(run, seq, cams, offs)
+        prof.append(secs * 1e3 / T)
         results = [np.asarray(out[t]) for t in range(T)]
     else:
         step = make_denoise_frame(cfg, donate=False)
@@ -229,11 +223,8 @@ def main(argv=None):
             off = jnp.asarray(data["pixel_offsets"][t])
             jax.block_until_ready(inputs)
             t1 = time.perf_counter()
-            state, result = step(state, inputs, prev_cam, off,
-                                 jnp.int32(t))
-            from .profiling import force
-
-            force(result)  # readback fence (block_until_ready may no-op)
+            state, result = jax.block_until_ready(
+                step(state, inputs, prev_cam, off, jnp.int32(t)))
             if t > 0:  # frame 0 includes compilation
                 prof.append((time.perf_counter() - t1) * 1e3)
             results.append(np.asarray(result))

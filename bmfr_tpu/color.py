@@ -3,7 +3,7 @@
 Matches ``RGB_to_YCoCg`` / ``YCoCg_to_RGB`` (opencl/bmfr.cl:184-198). The
 transform here operates on channels-first ``[3, ...]`` arrays, the native
 layout of this framework (channel planes keep the wide W dimension minor,
-which is what the TPU's (8, 128) vector tiles want).
+which keeps every stage elementwise over whole planes).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Configuration for the BMFR-TPU denoising pipeline.
+"""Configuration for the BMFR denoising pipeline.
 
 The reference (tcantenot/bmfr) configures everything through compile-time
 preprocessor macros serialized into OpenCL ``-D`` build options
@@ -18,6 +18,10 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+
+#: block edges the fused fitter is built for: one power-of-two tile per GPU
+#: program (ops/fitter_fused.py)
+FUSED_BLOCK_EDGES = (8, 16, 32)
 
 # Default feature sets, mirroring opencl/bmfr.cpp:65-77:
 #   NOT_SCALED_FEATURE_BUFFERS = "1.f, normal.x, normal.y, normal.z,"
@@ -89,46 +93,29 @@ class BMFRConfig:
     #: Least-squares solver for the per-block fit:
     #: "householder" replicates the reference's Householder QR + back
     #: substitution (opencl/bmfr.cl:549-699); "cholesky" solves the normal
-    #: equations with one batched MXU matmul + batched Cholesky (faster,
-    #: mathematically the same LS solution).
+    #: equations (Gram matrix + Cholesky) — mathematically the same LS
+    #: solution, fewer operations, at some conditioning risk.
     solver: str = "householder"
-    #: Fitter backend: "xla" (pure jnp), "pallas" (fused TPU kernel), or
-    #: "auto" (pallas on TPU, xla elsewhere).
-    fitter_impl: str = "auto"
+    #: Fitter backend: "xla" (blocked feature tensor + batched linear
+    #: algebra, ops/fitter.py) or "fused" (one GPU program per block that
+    #: fits and reconstructs on chip, ops/fitter_fused.py; block_edge must
+    #: be 8, 16 or 32).
+    fitter_impl: str = "xla"
+    #: Run Pallas kernels in the Pallas interpreter instead of compiling
+    #: them for the GPU (CPU tests only).
+    pallas_interpret: bool = False
     #: Gather strategy for the temporal reprojection taps (K1/K4/K5):
-    #: "float32" = exact, one gather per tap (4 gather ops);
-    #: "packed_bf16" = two bf16 channels per 32-bit lane;
-    #: "packed_x_bf16" = each gather fetches a horizontal bf16 tap pair —
-    #: 2 gather ops total (~0.4% relative rounding on gathered history,
-    #: far below the fidelity budget);
-    #: "pallas" = the fused window-warp kernel (ops/warp_pallas.py) —
-    #: same packed-bf16 values as packed_x_bf16, bit-identical to it, at
-    #: a fraction of the gather cost; falls back to the XLA gather for
-    #: frames whose motion exceeds the kernel's window.
+    #: "float32" = exact, one gather per tap;
+    #: "packed_bf16" = two bf16 channels per 32-bit word;
+    #: "packed_x_bf16" = each gather fetches a horizontal bf16 tap pair
+    #: (~0.4% relative rounding on gathered history).
     warp_mode: str = "float32"
-    #: Arithmetic dtype for the residual elementwise bandwidth — the TAA
-    #: 3x3 YCoCg neighborhood AABB scan (K5), the stage's dominant HBM
-    #: traffic. "bfloat16" halves its bytes, mirroring the reference's
-    #: own half-precision pragmatism (opencl/bmfr.cl:255-265); clamp
-    #: bounds are perturbed <= 1 bf16 ulp and outputs stay f32. K4's
-    #: blend math stays f32 always: it updates recurrent state, and its
-    #: whole stage is ~0.06 ms. Measured cost: FIDELITY_r5.json
-    #: residual_bf16 rows.
+    #: Arithmetic dtype of the TAA 3x3 YCoCg neighborhood AABB scan (K5).
+    #: "bfloat16" halves its bytes, mirroring the reference's own
+    #: half-precision pragmatism (opencl/bmfr.cl:255-265); clamp bounds
+    #: are perturbed <= 1 bf16 ulp and outputs stay f32. K4's blend math
+    #: stays f32 always: it updates recurrent state.
     residual_dtype: str = "float32"
-    #: Dispatch structure for the fused warp's exactness tiers (kernel
-    #: with in-kernel steady-tier fix merge / compact heavy fix-up /
-    #: whole-frame fallback — ops/warp_pallas.py). Since round 5 the
-    #: steady tier's fix entries merge INSIDE the kernel as each tile
-    #: is staged, so on steady frames the kernel output IS the final
-    #: answer: "steady_cond" (default) puts only the rare overflow
-    #: tiers (~1 frame in 60) behind a cond whose identity branch
-    #: passes the kernel output through; "switch" = one flat 4-way
-    #: lax.switch (round-3 structure; its branch-result copies of the
-    #: 13 planes cost ~0.3 ms, bench-arbitrated round 4). Both are
-    #: value-identical at every coverage level. "steady_only" drops
-    #: overflow handling entirely — measurement ONLY (a teleport frame
-    #: would keep stale taps).
-    warp_tier_impl: str = "steady_cond"
 
     # --- stage-bypass debug flags ---
     # The reference documents debugging by bisecting the 5-stage chain with
@@ -212,25 +199,17 @@ class BMFRConfig:
             raise ValueError(f"bad tmp_data_dtype: {self.tmp_data_dtype}")
         if self.solver not in ("householder", "cholesky"):
             raise ValueError(f"bad solver: {self.solver}")
-        if self.fitter_impl not in ("auto", "xla", "pallas",
-                                    "pallas_direct"):
+        if self.fitter_impl not in ("xla", "fused"):
             raise ValueError(f"bad fitter_impl: {self.fitter_impl}")
-        if self.fitter_impl == "pallas_direct":
-            # the planes-direct path (ops/fitter_direct.py) fits blocks
-            # straight from the image-layout view; its kernel geometry
-            # needs this (both the householder and the cholesky solver
-            # have direct kernels — _qr_kernel / _chol_kernel)
-            if self.block_edge != 32:
-                raise ValueError(
-                    "fitter_impl='pallas_direct' requires block_edge=32")
+        if (self.fitter_impl == "fused"
+                and self.block_edge not in FUSED_BLOCK_EDGES):
+            raise ValueError(
+                "fitter_impl='fused' requires block_edge 8, 16 or 32")
         if self.warp_mode not in ("float32", "packed_bf16",
-                                  "packed_x_bf16", "pallas"):
+                                  "packed_x_bf16"):
             raise ValueError(f"bad warp_mode: {self.warp_mode}")
         if self.residual_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"bad residual_dtype: {self.residual_dtype}")
-        if self.warp_tier_impl not in ("switch", "steady_cond",
-                                       "steady_only"):
-            raise ValueError(f"bad warp_tier_impl: {self.warp_tier_impl}")
         if self.features_not_scaled[:1] != ("const",):
             # The QR noise is never applied to column 0, which the reference
             # assumes to be the constant feature (opencl/bmfr.cl:606,625-627).
@@ -242,3 +221,18 @@ class BMFRConfig:
 
 
 DEFAULT_CONFIG = BMFRConfig()
+
+
+def bench_config(width=1280, height=720, **overrides) -> BMFRConfig:
+    """The benchmarked configuration (``bench.py``, ``chip_smoke.py``):
+    the synthetic scenes' reprojection limits, exact float32 taps, the
+    fused per-block fitter with the Cholesky solver, and the bf16 TAA
+    neighborhood scan. (On an H100 the fused fitter beat the XLA fitter
+    for both solvers, and bf16 taps were no faster than float32 ones —
+    PERF.md.) ``overrides`` replace any field."""
+    kw = dict(image_width=width, image_height=height,
+              position_limit_squared=0.03, normal_limit_squared=0.5,
+              warp_mode="float32", fitter_impl="fused",
+              solver="cholesky", residual_dtype="bfloat16")
+    kw.update(overrides)
+    return BMFRConfig(**kw).validate()

@@ -30,22 +30,13 @@ def default_config_matrix(base: BMFRConfig):
         "cholesky": base.replace(solver="cholesky"),
         "tmp_f16": base.replace(tmp_data_dtype="float16"),
         "warp_packed": base.replace(warp_mode="packed_x_bf16"),
-        "warp_pallas": base.replace(warp_mode="pallas"),
-        "flagship": base.replace(warp_mode="pallas",
-                                 fitter_impl="pallas_direct",
-                                 residual_dtype="bfloat16"),
-        # the bench headline candidate: flagship datapath + the fused
-        # Gram/Cholesky solver (ops/fitter_direct.py) — same
-        # least-squares contract as Householder (opencl/bmfr.cl:549-699
-        # is the means, the LS solution is the contract)
-        "flagship_cholesky": base.replace(warp_mode="pallas",
-                                          fitter_impl="pallas_direct",
-                                          solver="cholesky",
-                                          residual_dtype="bfloat16"),
-        # flagship with f32 residual: isolates the residual_dtype choice
-        # at the flagship operating point (VERDICT r4 task #4)
-        "flagship_f32res": base.replace(warp_mode="pallas",
-                                        fitter_impl="pallas_direct"),
+        "fused": base.replace(fitter_impl="fused"),
+        # the benchmarked configuration (config.bench_config): fused
+        # Cholesky fitter, bf16 TAA residual — same least-squares
+        # contract as Householder (opencl/bmfr.cl:549-699 is the means,
+        # the LS solution is the contract)
+        "bench": base.replace(fitter_impl="fused", solver="cholesky",
+                              residual_dtype="bfloat16"),
         "residual_bf16": base.replace(residual_dtype="bfloat16"),
         "no_taa": base.replace(skip_taa=True),
         "first_order": base.replace(
@@ -167,6 +158,8 @@ def main(argv=None):
     p.add_argument("--height", type=int, default=96)
     p.add_argument("--frames", type=int, default=8)
     p.add_argument("--json-out")
+    p.add_argument("--interpret", action="store_true",
+                   help="run Pallas kernels in the interpreter (CPU)")
     args = p.parse_args(argv)
 
     scenes = {}
@@ -195,7 +188,8 @@ def main(argv=None):
 
     base = BMFRConfig(
         image_width=args.width, image_height=args.height,
-        position_limit_squared=0.03, normal_limit_squared=0.5)
+        position_limit_squared=0.03, normal_limit_squared=0.5,
+        pallas_interpret=args.interpret)
     rows = run_sweep(scenes, base)
     print_report(rows)
     if args.json_out:

@@ -5,18 +5,14 @@ Mirrors the reference's OpenImageIO-based loaders/writers
 writer loop at :519-553), including the shape/channel validation and the
 half->float conversion note (opencl/bmfr.cpp:157-158).
 
-Backends, in order of preference:
-  1. the native C++ loader (bmfr_tpu.io.native, OpenMP-threaded, no Python
-     in the per-frame path) when the shared library is built;
-  2. OpenCV (handles half and float EXRs);
-  3. imageio.
+Backends: the native C++ library (bmfr_tpu.io.native, threaded, no Python
+in the per-frame path) when it is built, the pure-Python EXR reader
+(bmfr_tpu.io.exr_py) and PNG writer (bmfr_tpu.io.png) otherwise.
 
 All loaders return float32 HWC arrays.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 
@@ -32,18 +28,10 @@ class OperationResult:
         return self.success
 
 
-def _cv2():
-    os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
-    import cv2
-
-    return cv2
-
-
 def read_exr(path: str) -> np.ndarray:
     """Read an EXR into f32 HWC (RGB order).
 
-    Backends: native C++ (preferred); pure-Python reader otherwise. (The
-    OpenCV build in this environment ships without OpenEXR support.)
+    Backends: native C++ (preferred); pure-Python reader otherwise.
     """
     from . import native
 
@@ -81,8 +69,9 @@ def write_png(path: str, img_hwc: np.ndarray):
     if native.available():
         native.write_png(path, arr8)
         return
-    cv2 = _cv2()
-    cv2.imwrite(path, arr8[:, :, ::-1])  # RGB -> BGR
+    from .png import write_png as write_png_py
+
+    write_png_py(path, arr8)
 
 
 def write_exr(path: str, img_hwc: np.ndarray, half: bool = False):

@@ -30,10 +30,16 @@ _SO_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libbmfr_io.so"))
 
 
 def _try_build():
+    """Build the library under an exclusive file lock, so concurrent
+    processes (test workers) never load a half-written file."""
+    import fcntl
+
     try:
-        subprocess.run(
-            ["make", "-s", "-C", os.path.abspath(_NATIVE_DIR)],
-            check=True, capture_output=True, timeout=120)
+        with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(
+                ["make", "-s", "-C", os.path.abspath(_NATIVE_DIR)],
+                check=True, capture_output=True, timeout=120)
         return os.path.exists(_SO_PATH)
     except Exception:
         return False

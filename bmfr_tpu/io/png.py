@@ -1,11 +1,13 @@
-"""Minimal pure-Python PNG reader.
+"""Minimal pure-Python PNG reader and writer.
 
 The fidelity harness compares our output against the OpenCL reference
 implementation's tone-mapped PNGs (written by opencl/bmfr.cpp:521-547 via
 OpenImageIO). This reader covers everything such files use — 8/16-bit
 gray/RGB/RGBA, all five scanline filters, no interlace, no palette — with
 zero third-party dependencies (stdlib zlib only). The native writer's
-output (native/bmfr_io.cpp) round-trips through it in tests.
+output (native/bmfr_io.cpp) round-trips through it in tests, as does
+:func:`write_png`, the stdlib writer used where the native library is not
+built.
 """
 
 from __future__ import annotations
@@ -56,6 +58,29 @@ def _unfilter(raw, height, stride, bpp):
         out[y * stride:(y + 1) * stride] = row
         prev_row = row
     return bytes(out)
+
+
+def _chunk(tag, data):
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def write_png(path, img):
+    """Write ``uint8[H, W, 3]`` (RGB) or ``uint8[H, W]`` (gray) as an
+    8-bit PNG: one IDAT of unfiltered scanlines, zlib level 6."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    height, width, channels = img.shape
+    ctype = {1: 0, 3: 2, 4: 6}[channels]
+    rows = np.concatenate(
+        [np.zeros((height, 1), np.uint8), img.reshape(height, -1)], axis=1)
+    with open(path, "wb") as f:
+        f.write(_SIG)
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8,
+                                            ctype, 0, 0, 0)))
+        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_chunk(b"IEND", b""))
 
 
 def read_png(path):

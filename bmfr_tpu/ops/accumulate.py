@@ -1,6 +1,6 @@
 """Stage K4 — second temporal accumulation + albedo remodulation + tone map.
 
-TPU redesign of ``accumulate_filtered_data`` (opencl/bmfr.cl:761-857):
+Redesign of ``accumulate_filtered_data`` (opencl/bmfr.cl:761-857):
 branch-free masked bilinear taps reusing the accept bitmask and reprojected
 coordinates produced by stage K1, then the dynamically-capped blend, albedo
 remodulation and gamma tone map (opencl/bmfr.cl:847-856).
@@ -24,35 +24,29 @@ def accumulate_filtered_data(cfg, filtered, prev_pixels, accept, albedo,
     H, W = cfg.image_height, cfg.image_width
     f32 = jnp.float32
 
-    if isinstance(taps, dict):
-        # pre-blended sums from the fused Pallas warp (same accept-gated
-        # weights — ops/warp_pallas.blend_from_rows)
-        prev_color = taps["k4_out_sum"]
-        total_weight = taps["total_weight"]
-    else:
-        pfx, pfy = prev_pixels[0], prev_pixels[1]
-        ix = floor_int(pfx)
-        iy = floor_int(pfy)
-        fx = pfx - ix.astype(f32)
-        fy = pfy - iy.astype(f32)
-        tap_w = bilinear_weights(fx, fy)
+    pfx, pfy = prev_pixels[0], prev_pixels[1]
+    ix = floor_int(pfx)
+    iy = floor_int(pfy)
+    fx = pfx - ix.astype(f32)
+    fy = pfy - iy.astype(f32)
+    tap_w = bilinear_weights(fx, fy)
 
-        if taps is None:
-            from .warp import gather_taps
+    if taps is None:
+        from .warp import gather_taps
 
-            taps = gather_taps(prev_out, iy, ix, mode=cfg.warp_mode)
-        prev_color = jnp.zeros((3, H, W), f32)
-        total_weight = jnp.zeros((H, W), f32)
-        for i, (dx, dy) in enumerate(TAP_OFFSETS):
-            # The accept bits were only set for in-bounds taps in K1
-            # (opencl/bmfr.cl:380-381), so no extra bounds test is
-            # needed — mirroring the reference, which indexes unchecked
-            # here (opencl/bmfr.cl:801-832). Indices are clipped for
-            # memory safety.
-            ok = (accept & jnp.uint8(1 << i)) > 0
-            wgt = jnp.where(ok, tap_w[i], 0.0)
-            prev_color = prev_color + wgt[None] * taps[i]
-            total_weight = total_weight + wgt
+        taps = gather_taps(prev_out, iy, ix, mode=cfg.warp_mode)
+    prev_color = jnp.zeros((3, H, W), f32)
+    total_weight = jnp.zeros((H, W), f32)
+    for i, (dx, dy) in enumerate(TAP_OFFSETS):
+        # The accept bits were only set for in-bounds taps in K1
+        # (opencl/bmfr.cl:380-381), so no extra bounds test is
+        # needed — mirroring the reference, which indexes unchecked
+        # here (opencl/bmfr.cl:801-832). Indices are clipped for
+        # memory safety.
+        ok = (accept & jnp.uint8(1 << i)) > 0
+        wgt = jnp.where(ok, tap_w[i], 0.0)
+        prev_color = prev_color + wgt[None] * taps[i]
+        total_weight = total_weight + wgt
 
     enabled = (frame > 0) & (not cfg.skip_second_accum)
     has_prev = enabled & (total_weight > 0.0)

@@ -5,7 +5,7 @@ The reference scatters per-pixel feature vectors into a block-interleaved
 (opencl/bmfr.cl:314-316 and :455-476; the IN_ACCESS layout at :89-97), and
 the reconstruction inverts the jitter per pixel (opencl/bmfr.cl:718-722).
 
-On TPU both directions are pure data movement with static shapes:
+Here both directions are pure data movement with static shapes:
 
 * mirror = one symmetric pad (``mirror`` at opencl/bmfr.cl:209-222 is numpy's
   "symmetric" mode);
@@ -13,7 +13,7 @@ On TPU both directions are pure data movement with static shapes:
   moves the slice start);
 * block layout = reshape + transpose.
 
-No gather/scatter is involved, which is exactly what XLA:TPU wants.
+No gather/scatter is involved.
 """
 
 from __future__ import annotations
@@ -67,40 +67,21 @@ def jitter_offset(frame, block_edge=32):
     return table[jnp.mod(frame, table.shape[0])]
 
 
-def blockify_padded(cfg, planes, width=None, slack=(0, 0)):
-    """Mirror pad ONLY — no jitter slice. Returns ``(padded, tw)``.
-
-    The planes-direct fitter DMAs its 32-row tiles straight from HBM
-    with the per-frame jitter riding the (8, 128)-aligned-down DMA
-    origin (Mosaic requires provably aligned dynamic origins —
-    scripts/probe_dma_align.py), instead of materializing a second
-    36 MB view copy (``lax.dynamic_slice`` here measured 0.12 ms/frame,
-    docs/PERF_NOTES.md round 3). ``slack``: extra (rows, cols) of hi
-    padding covering the consumer's alignment-enlarged fetch windows
-    (``fitter_direct.DMA_SLACK``). ``tw`` is the view width the
-    consumer must fetch (equal to ``width`` unless the image is too
-    small for the mirror to reach, in which case the caller must fall
-    back to :func:`blockify_view` + constant pad)."""
-    C, H, W = planes.shape
-    half = cfg.block_edge // 2
-    mw = cfg.workset_with_margins_width
-    tw = width or mw
+def blockify_padded(cfg, planes):
+    """Mirror pad ONLY — no jitter slice. The fused fitter
+    (:mod:`bmfr_tpu.ops.fitter_fused`) reads each block straight from
+    these planes at :func:`jitter_origin` plus the block's offset, so the
+    jittered view is never copied."""
     pad_lo, pad_hi_x, pad_hi_y = _pads(cfg)
-    if pad_hi_x + (tw - mw) + half + slack[1] > W:
-        tw = mw
-    pad_hi_x = pad_hi_x + (tw - mw) + slack[1]
-    pad_hi_y = pad_hi_y + slack[0]
-    padded = jnp.pad(
+    return jnp.pad(
         planes, ((0, 0), (pad_lo, pad_hi_y), (pad_lo, pad_hi_x)),
         mode="symmetric")
-    return padded, tw
 
 
 def jitter_origin(cfg, frame):
     """The (row, col) origin of the jittered view inside
-    :func:`blockify_padded`'s output — i32[2], traced. Consumers add it
-    to their tile DMA origins; ``blockify_view`` is exactly
-    ``dynamic_slice(padded, origin)``."""
+    :func:`blockify_padded`'s output — i32[2], traced;
+    :func:`blockify_view` is exactly ``dynamic_slice(padded, origin)``."""
     pad_lo, _, _ = _pads(cfg)
     half = cfg.block_edge // 2
     off = jitter_offset(frame, cfg.block_edge)
@@ -108,39 +89,16 @@ def jitter_origin(cfg, frame):
                       pad_lo - half + off[0]]).astype(jnp.int32)
 
 
-def blockify_view(cfg, planes, frame, width=None):
+def blockify_view(cfg, planes, frame):
     """The jittered margins-grid view only — ``[C, H, W]`` planes ->
     ``[C, mh, mw]`` (mirror pad + per-frame jitter slice), without the
-    block-layout transpose. The planes-direct fitter
-    (:mod:`bmfr_tpu.ops.fitter_direct`) consumes blocks straight from
-    this layout; profiling showed the transpose costing more than the
-    fit itself (docs/PERF_NOTES.md).
-
-    ``width``: optional target width > mw (e.g. the direct fitter's
-    whole-chunk lane padding). The extra columns are mirrored filler —
-    the fake blocks they form are fitted and discarded, exactly like
-    the fitter's own constant pad, but built in this single pad pass
-    instead of a second 0.1 ms/frame pad over the 36 MB view."""
-    C, H, W = planes.shape
-    be = cfg.block_edge
-    half = be // 2
+    block-layout transpose."""
+    C = planes.shape[0]
     mw, mh = cfg.workset_with_margins_width, cfg.workset_with_margins_height
-    tw = width or mw
-    pad_lo, pad_hi_x, pad_hi_y = _pads(cfg)
-    if pad_hi_x + (tw - mw) + half > W:
-        # mirror can't reach that far on small images — return the base
-        # view and let the caller's constant pad cover the difference
-        tw = mw
-    pad_hi_x = pad_hi_x + (tw - mw)
-    padded = jnp.pad(
-        planes, ((0, 0), (pad_lo, pad_hi_y), (pad_lo, pad_hi_x)),
-        mode="symmetric")
-    off = jitter_offset(frame, cfg.block_edge)
-    start_x = pad_lo - half + off[0]
-    start_y = pad_lo - half + off[1]
+    origin = jitter_origin(cfg, frame)
     return lax.dynamic_slice(
-        padded, (jnp.int32(0), jnp.int32(start_y), jnp.int32(start_x)),
-        (C, mh, tw))
+        blockify_padded(cfg, planes), (jnp.int32(0), origin[0], origin[1]),
+        (C, mh, mw))
 
 
 def blockify_planes(cfg, planes, frame):
@@ -195,19 +153,3 @@ def build_feature_blocks(cfg, normals, positions, accum_color, frame):
     if cfg.tmp_data_dtype != "float32":
         blocks = blocks.astype(cfg.tmp_data_dtype)
     return blocks
-
-
-def build_feature_view(cfg, normals, positions, accum_color, frame):
-    """Like :func:`build_feature_blocks` but stopping at the jittered
-    image-layout view (for the planes-direct fitter). The storage-dtype
-    rounding of the initial store happens via the same clamp +
-    round-trip contract (bmfr.cl:471-473)."""
-    feats = evaluate_features(cfg.all_features, normals, positions)
-    planes = jnp.concatenate([feats, accum_color], axis=0)
-    planes = jnp.where(jnp.isnan(planes), 0.0, planes)
-    if cfg.tmp_data_dtype == "float16":
-        planes = jnp.clip(planes, -65504.0, 65504.0)
-    view = blockify_view(cfg, planes, frame)
-    if cfg.tmp_data_dtype != "float32":
-        view = view.astype(cfg.tmp_data_dtype).astype(jnp.float32)
-    return view

@@ -1,13 +1,12 @@
 """Stage K2 — the blockwise multi-order least-squares fit.
 
-TPU redesign of ``fitter`` (opencl/bmfr.cl:490-700). The reference runs one
+Batched redesign of ``fitter`` (opencl/bmfr.cl:490-700). The reference runs one
 256-thread workgroup per 32x32 block, doing (a) per-block min/max feature
 scaling, (b) an in-place Householder QR of the 1024x13 block matrix with
 hand-unrolled local-memory reduction trees, and (c) a back substitution on a
 packed R to get 10 regression weights x 3 color channels per block.
 
-Here the same math is *batched linear algebra* over all blocks at once,
-which is what the MXU wants:
+Here the same math is *batched linear algebra* over all blocks at once:
 
 * scaling = batched min/max reductions over ``[n_blocks, F, 1024]``;
 * the QR = ``feature_count`` Householder reflection steps, each one a batched
@@ -28,14 +27,13 @@ reference noises each column exactly once, while loading it for the col-0
 reflection, which is equivalent.
 
 An alternative "cholesky" solver forms the normal equations with a single
-batched MXU matmul — mathematically the same least-squares solution, much
+batched matmul — mathematically the same least-squares solution, much
 cheaper, at some conditioning risk (kept in check by the noise + per-block
 scaling). Both are exposed via ``BMFRConfig.solver``.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.lax as lax
 import jax.numpy as jnp
 
@@ -126,7 +124,7 @@ def householder_qr_weights(cfg, data):
 
 
 def cholesky_weights(cfg, data):
-    """Normal-equations solve: one batched MXU matmul + Cholesky.
+    """Normal-equations solve: one batched matmul + Cholesky.
 
     Mathematically the same least-squares solution as the QR path; offered
     as the high-throughput solver (``BMFRConfig.solver = "cholesky"``).
@@ -142,14 +140,11 @@ def cholesky_weights(cfg, data):
                    preferred_element_type=jnp.float32)
     L = jnp.linalg.cholesky(G)
     y = lax.linalg.triangular_solve(L, c, left_side=True, lower=True)
-    w = lax.linalg.triangular_solve(
+    return lax.linalg.triangular_solve(
         L, y, left_side=True, lower=True, transpose_a=True)
-    # Singular blocks (NaN from Cholesky) fall back to zero weights; the
-    # regularization noise makes this vanishingly rare.
-    return jnp.where(jnp.isnan(w), 0.0, w)
 
 
-def fit_blocks(cfg, tmp_blocks, frame, impl=None):
+def fit_blocks(cfg, tmp_blocks, frame):
     """Full fitter stage: scale -> noise -> solve.
 
     tmp_blocks: ``[n_blocks, buffer_count, block_pixels]`` in the storage
@@ -157,33 +152,6 @@ def fit_blocks(cfg, tmp_blocks, frame, impl=None):
     Returns (weights ``f32[n_blocks, F, 3]``, mins_maxs
     ``f32[n_blocks, n_scaled, 2]``).
     """
-    requested = impl or cfg.fitter_impl
-    impl = requested
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if impl == "pallas_direct":
-        # the planes-direct path enters via fit_blocks_direct (it takes
-        # the image-layout view); through this block-input API it is
-        # equivalent to the chunked Pallas kernel
-        impl = "pallas"
-    if cfg.solver != "householder" and impl == "pallas":
-        # The Pallas kernel implements only the Householder QR; the solver
-        # choice must win over the backend choice (a "cholesky" sweep must
-        # actually measure Cholesky). "auto" silently falls back to XLA;
-        # an explicit pallas+cholesky request is a config error.
-        if requested == "pallas":
-            raise ValueError(
-                f"solver={cfg.solver!r} is not implemented by the Pallas "
-                "fitter; use fitter_impl='xla' or 'auto'")
-        impl = "xla"
-    if impl == "pallas":
-        try:
-            from .fitter_pallas import fit_blocks_pallas
-        except ImportError:
-            fit_blocks_pallas = None
-        if fit_blocks_pallas is not None:
-            return fit_blocks_pallas(cfg, tmp_blocks, frame)
-
     data = tmp_blocks.astype(jnp.float32)
     data, mins_maxs = scale_blocks(cfg, data)
     data = _storage_roundtrip(cfg, data)
@@ -196,4 +164,6 @@ def fit_blocks(cfg, tmp_blocks, frame, impl=None):
         weights = cholesky_weights(cfg, data)
     else:
         weights = householder_qr_weights(cfg, data)
-    return weights, mins_maxs
+    # Singular blocks (NaN) fall back to zero weights; the regularization
+    # noise makes this vanishingly rare.
+    return jnp.where(jnp.isnan(weights), 0.0, weights), mins_maxs

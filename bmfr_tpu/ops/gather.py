@@ -1,7 +1,7 @@
 """Bilinear gather utilities for the temporal reprojection stages.
 
 The reference does per-pixel bilinear taps with branchy bounds/validity tests
-(opencl/bmfr.cl:374-419, :801-832, :929-960). The TPU formulation is
+(opencl/bmfr.cl:374-419, :801-832, :929-960). The formulation here is
 branch-free: indices are clipped, values gathered for all pixels, and
 validity folded in as multiplicative masks.
 """

@@ -1,6 +1,6 @@
 """Stage K1 — temporal reprojection + first accumulation of noisy color.
 
-TPU redesign of ``accumulate_noisy_data`` (opencl/bmfr.cl:290-485). The
+Redesign of ``accumulate_noisy_data`` (opencl/bmfr.cl:290-485). The
 reference runs one work-item per *margins-grid* cell (1312x768), each
 mirroring its coordinate into the image and redundantly recomputing the
 accumulation for duplicated border pixels; outputs are stored only by the
@@ -68,50 +68,42 @@ def accumulate_noisy_data(cfg, normals, positions, noisy, prev_normals,
     ix = floor_int(pfx)
     iy = floor_int(pfy)
 
-    if isinstance(taps, dict):
-        # pre-blended sums from the fused Pallas warp
-        # (ops/warp_pallas.blend_from_rows)
-        prev_color = taps["k1_color_sum"]
-        sample_spp = taps["k1_spp_sum"]
-        total_weight = taps["total_weight"]
-        accept = taps["accept"]
-    else:
-        fx = pfx - ix.astype(f32)
-        fy = pfy - iy.astype(f32)
-        tap_w = bilinear_weights(fx, fy)
+    fx = pfx - ix.astype(f32)
+    fy = pfy - iy.astype(f32)
+    tap_w = bilinear_weights(fx, fy)
 
-        # --- masked bilinear taps (opencl/bmfr.cl:374-419) ---
-        if taps is None:
-            from .warp import gather_taps
+    # --- masked bilinear taps (opencl/bmfr.cl:374-419) ---
+    if taps is None:
+        from .warp import gather_taps
 
-            stacked = jnp.concatenate(
-                [prev_positions, prev_normals, prev_noisy,
-                 prev_spp.astype(f32)[None]], axis=0)   # [10, H, W]
-            taps = gather_taps(stacked, iy, ix, mode=cfg.warp_mode)
+        stacked = jnp.concatenate(
+            [prev_positions, prev_normals, prev_noisy,
+             prev_spp.astype(f32)[None]], axis=0)   # [10, H, W]
+        taps = gather_taps(stacked, iy, ix, mode=cfg.warp_mode)
 
-        prev_color = jnp.zeros((3, H, W), f32)
-        sample_spp = jnp.zeros((H, W), f32)
-        total_weight = jnp.zeros((H, W), f32)
-        accept = jnp.zeros((H, W), jnp.uint8)
+    prev_color = jnp.zeros((3, H, W), f32)
+    sample_spp = jnp.zeros((H, W), f32)
+    total_weight = jnp.zeros((H, W), f32)
+    accept = jnp.zeros((H, W), jnp.uint8)
 
-        pos_lim = f32(cfg.position_limit_squared)
-        nrm_lim = f32(cfg.normal_limit_squared)
+    pos_lim = f32(cfg.position_limit_squared)
+    nrm_lim = f32(cfg.normal_limit_squared)
 
-        for i, (dx, dy) in enumerate(TAP_OFFSETS):
-            ok = in_bounds(iy + dy, ix + dx, H, W)
-            pos_d = taps[i, 0:3] - wp
-            ok &= (pos_d[0] * pos_d[0] + pos_d[1] * pos_d[1]
-                   + pos_d[2] * pos_d[2]) < pos_lim
-            nrm_d = taps[i, 3:6] - normals
-            ok &= (nrm_d[0] * nrm_d[0] + nrm_d[1] * nrm_d[1]
-                   + nrm_d[2] * nrm_d[2]) < nrm_lim
+    for i, (dx, dy) in enumerate(TAP_OFFSETS):
+        ok = in_bounds(iy + dy, ix + dx, H, W)
+        pos_d = taps[i, 0:3] - wp
+        ok &= (pos_d[0] * pos_d[0] + pos_d[1] * pos_d[1]
+               + pos_d[2] * pos_d[2]) < pos_lim
+        nrm_d = taps[i, 3:6] - normals
+        ok &= (nrm_d[0] * nrm_d[0] + nrm_d[1] * nrm_d[1]
+               + nrm_d[2] * nrm_d[2]) < nrm_lim
 
-            wgt = jnp.where(ok, tap_w[i], 0.0)
-            prev_color = prev_color + wgt[None] * taps[i, 6:9]
-            sample_spp = sample_spp + wgt * taps[i, 9]
-            total_weight = total_weight + wgt
-            accept = accept | jnp.where(ok, jnp.uint8(1 << i),
-                                        jnp.uint8(0))
+        wgt = jnp.where(ok, tap_w[i], 0.0)
+        prev_color = prev_color + wgt[None] * taps[i, 6:9]
+        sample_spp = sample_spp + wgt * taps[i, 9]
+        total_weight = total_weight + wgt
+        accept = accept | jnp.where(ok, jnp.uint8(1 << i),
+                                    jnp.uint8(0))
 
     not_first = (frame > 0)
     has_prev = not_first & (total_weight > 0.0)

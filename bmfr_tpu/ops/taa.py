@@ -1,9 +1,9 @@
 """Stage K5 — temporal anti-aliasing with a YCoCg neighborhood clamp.
 
-TPU redesign of ``taa`` (opencl/bmfr.cl:860-974). The 3x3 neighborhood
-min/max (box and cross averaged) is computed with static shifts + edge masks
-— pure VPU work, no gathers; only the bilinear sample of the previous TAA
-result needs gathers (4 masked taps).
+Redesign of ``taa`` (opencl/bmfr.cl:860-974). The 3x3 neighborhood
+min/max (box and cross averaged) is computed with static shifts + edge
+masks — pure elementwise work, no gathers; only the bilinear sample of the
+previous TAA result needs gathers (4 masked taps).
 """
 
 from __future__ import annotations
@@ -40,8 +40,7 @@ def taa(cfg, prev_pixels, new_frame, prev_result, frame, taps=None):
     # The neighborhood scan is the stage's bandwidth cost (9 shifted
     # min/max passes over the frame); with residual_dtype="bfloat16" it
     # runs at half the bytes, perturbing the clamp bounds by at most
-    # one bf16 ulp (~0.4% relative) — measured fidelity cost in the
-    # FIDELITY_r5.json residual_bf16 / flagship-vs-flagship_f32res rows.
+    # one bf16 ulp (~0.4% relative).
     rd = (jnp.bfloat16 if cfg.residual_dtype == "bfloat16" else
           jnp.float32)
     ycc = rgb_to_ycocg(new_frame)
@@ -65,36 +64,30 @@ def taa(cfg, prev_pixels, new_frame, prev_result, frame, taps=None):
         x.astype(f32) for x in (mn_box, mx_box, mn_cross, mx_cross))
 
     # --- bilinear sample of previous result (opencl/bmfr.cl:922-960) ---
-    if isinstance(taps, dict):
-        # pre-blended sums from the fused Pallas warp
-        prev_color = taps["k5_result_sum"]
-        total_weight = taps["k5_weight"]
-    else:
-        fx = pfx - ix.astype(f32)
-        fy = pfy - iy.astype(f32)
-        w00, w10, w01, w11 = bilinear_weights(fx, fy)
-        x_lo_ok = ix >= 0
-        x_hi_ok = ix < W - 1
-        y_lo_ok = iy >= 0
-        y_hi_ok = iy < H - 1
+    fx = pfx - ix.astype(f32)
+    fy = pfy - iy.astype(f32)
+    w00, w10, w01, w11 = bilinear_weights(fx, fy)
+    x_lo_ok = ix >= 0
+    x_hi_ok = ix < W - 1
+    y_lo_ok = iy >= 0
+    y_hi_ok = iy < H - 1
 
-        if taps is None:
-            from .warp import gather_taps
+    if taps is None:
+        from .warp import gather_taps
 
-            taps = gather_taps(prev_result, iy, ix, mode=cfg.warp_mode)
-        tap_vals = taps
-        taps = (
-            (w00, y_lo_ok & x_lo_ok),
-            (w10, y_lo_ok & x_hi_ok),
-            (w01, y_hi_ok & x_lo_ok),
-            (w11, y_hi_ok & x_hi_ok),
-        )
-        prev_color = jnp.zeros_like(new_frame)
-        total_weight = jnp.zeros((H, W), f32)
-        for i, (wgt, ok) in enumerate(taps):
-            wm = jnp.where(ok, wgt, 0.0)
-            prev_color = prev_color + wm[None] * tap_vals[i]
-            total_weight = total_weight + wm
+        taps = gather_taps(prev_result, iy, ix, mode=cfg.warp_mode)
+    weighted = (
+        (w00, y_lo_ok & x_lo_ok),
+        (w10, y_lo_ok & x_hi_ok),
+        (w01, y_hi_ok & x_lo_ok),
+        (w11, y_hi_ok & x_hi_ok),
+    )
+    prev_color = jnp.zeros_like(new_frame)
+    total_weight = jnp.zeros((H, W), f32)
+    for i, (wgt, ok) in enumerate(weighted):
+        wm = jnp.where(ok, wgt, 0.0)
+        prev_color = prev_color + wm[None] * taps[i]
+        total_weight = total_weight + wm
 
     safe_tw = jnp.where(total_weight > 0.0, total_weight, 1.0)
     prev_color = prev_color / safe_tw[None]

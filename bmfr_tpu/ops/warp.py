@@ -1,20 +1,16 @@
 """Bilinear tap engine: gather strategies for the temporal stages.
 
-On this TPU stack XLA's gather costs ~8-10 ms per gather *op* on a
-[720,1280] index set, nearly independent of how many (<=16) channels ride
-along, and Mosaic's in-kernel dynamic-gather carries a ~30 us fixed
-per-op overhead (measured; see docs/PERF_NOTES.md) — so the only
-effective lever is minimizing the number of gather ops.
+The reference reads its four bilinear taps in place per pixel
+(opencl/bmfr.cl:374-419, :801-832, :929-960). Here the taps of all 16
+recurrent channels are fetched with XLA gathers, in one of three modes:
 
-Modes:
   * ``float32``: one gather op per tap (4 total; bit-exact — the default,
     used by the oracle-equivalence tests and fidelity work).
-  * ``packed_bf16``: two bf16 *channels* per 32-bit lane (4 ops, half the
-    lanes).
-  * ``packed_x_bf16``: two bf16 horizontal *taps* per 32-bit lane — the
-    whole four-tap fetch of up to 16 channels in 2 gather ops, the
-    measured optimum (~0.4% relative rounding on gathered history, far
-    below the fidelity budget; used by the benchmark configuration).
+  * ``packed_bf16``: two bf16 *channels* per 32-bit word (4 ops, half the
+    bytes).
+  * ``packed_x_bf16``: two bf16 horizontal *taps* per 32-bit word — the
+    whole four-tap fetch of up to 16 channels in 2 gather ops, at half
+    the bytes (~0.4% relative rounding on gathered history).
 """
 
 from __future__ import annotations
@@ -71,22 +67,13 @@ def gather_taps(planes, iy, ix, mode="float32"):
     clipped; validity must be masked by the caller.
 
     Mode ``packed_x_bf16`` fetches each tap row's horizontal pair in one
-    32-bit gather — 2 gather ops total for all four taps of all channels,
-    the measured optimum on this TPU stack (gather cost is per-op, ~10 ms
-    for up to 16 rider channels).
+    32-bit gather — 2 gather ops total for all four taps of all channels.
     """
     C = planes.shape[0]
-    if mode in ("packed_x_bf16", "pallas"):
+    if mode == "packed_x_bf16":
         src = pack_x_pairs_bf16(planes)                # [C, H, W] i32
-        if mode == "pallas":
-            from .warp_pallas import warp_rows_pallas
-
-            row0, row1 = warp_rows_pallas(src, iy, ix)
-            row0 = row0.astype(jnp.uint32)
-            row1 = row1.astype(jnp.uint32)
-        else:
-            row0 = gather_planes(src, iy, ix).astype(jnp.uint32)
-            row1 = gather_planes(src, iy + 1, ix).astype(jnp.uint32)
+        row0 = gather_planes(src, iy, ix).astype(jnp.uint32)
+        row1 = gather_planes(src, iy + 1, ix).astype(jnp.uint32)
 
         def lo(u):
             return jax.lax.bitcast_convert_type(

@@ -1,6 +1,6 @@
 """Stage K3 — weighted-sum reconstruction from the fitted block weights.
 
-TPU redesign of ``weighted_sum`` (opencl/bmfr.cl:703-758). The reference
+Redesign of ``weighted_sum`` (opencl/bmfr.cl:703-758). The reference
 recomputes the feature vector per pixel, rescales with its block's min/max,
 and dots it with the block's weights, finding the block by inverting the
 jitter per pixel (opencl/bmfr.cl:718-722).
@@ -8,7 +8,7 @@ jitter per pixel (opencl/bmfr.cl:718-722).
 Here the per-pixel block lookup disappears: the image's feature planes are
 laid out in the *same* jittered block structure as the fit input (one shared
 blockify), so the reconstruction becomes one batched ``[block_pixels, F] x
-[F, 3]`` matmul per block on the MXU, followed by the inverse-jitter window
+[F, 3]`` matmul per block, followed by the inverse-jitter window
 slice. No gathers, no divergent lookups; block membership is by construction
 identical to the fit (same mapping ``g = p + half - offset``).
 """
@@ -16,11 +16,10 @@ identical to the fit (same mapping ``g = p + half - offset``).
 from __future__ import annotations
 
 import jax
-import jax.lax as lax
 import jax.numpy as jnp
 
 from ..features import evaluate_features
-from .blockify import blockify_planes, jitter_offset, unblockify_planes
+from .blockify import blockify_planes, unblockify_planes
 from .fitter import scale_with_mins_maxs
 
 
@@ -53,8 +52,8 @@ def weighted_sum(cfg, weights, mins_maxs, normals, positions, noisy, frame,
         fblocks[:, lo:, :], mins_maxs[..., 0:1], mins_maxs[..., 1:2])
     fblocks = jnp.concatenate([fblocks[:, :lo, :], scaled], axis=1)
 
-    # HIGHEST precision: the default (bf16-grade) MXU path costs ~1e-3
-    # absolute error on O(1) colors, far above the fidelity budget.
+    # HIGHEST precision: a reduced-precision (bf16/TF32) product costs
+    # ~1e-3 absolute error on O(1) colors, far above the fidelity budget.
     color_blocks = jnp.einsum(
         "bfe,bfc->bce", fblocks, weights,
         precision=jax.lax.Precision.HIGHEST,
@@ -65,47 +64,3 @@ def weighted_sum(cfg, weights, mins_maxs, normals, positions, noisy, frame,
     if cfg.skip_fitting:
         color = noisy
     return color
-
-
-def weighted_sum_image(cfg, weights, mins_maxs, normals, positions, noisy,
-                       frame):
-    """Image-space reconstruction (the planes-direct companion of
-    :func:`weighted_sum`): per-pixel feature evaluation + rescale + dot
-    with the pixel's block weights — the reference's own formulation
-    (opencl/bmfr.cl:724-747), with the per-pixel block lookup expressed
-    as a block-grid upsample + inverse-jitter slice instead of an index
-    computation. Pure elementwise work, no block-layout transpose."""
-    if cfg.skip_fitting:
-        return noisy
-    H, W = cfg.image_height, cfg.image_width
-    be = cfg.block_edge
-    half = be // 2
-    F = cfg.feature_count
-    lo = cfg.features_not_scaled_count
-    nby, nbx = cfg.blocks_y, cfg.blocks_x
-
-    feats = evaluate_features(cfg.all_features, normals, positions)
-
-    off = jitter_offset(frame, be)
-
-    def upsample(block_vals):
-        """[n_blocks, K] -> per-pixel [K, H, W] via the inverse jitter
-        (the mapping of unblockify_planes / bmfr.cl:718-722)."""
-        g = block_vals.reshape(nby, nbx, -1).transpose(2, 0, 1)
-        g = jnp.repeat(jnp.repeat(g, be, axis=1), be, axis=2)
-        return lax.dynamic_slice(
-            g, (jnp.int32(0), jnp.int32(half - off[1]),
-                jnp.int32(half - off[0])),
-            (g.shape[0], H, W))
-
-    n_sc = F - lo
-    mm = upsample(mins_maxs.reshape(cfg.n_blocks, n_sc * 2))
-    bmin = mm[0::2]
-    bmax = mm[1::2]
-    scaled = scale_with_mins_maxs(feats[lo:], bmin, bmax)
-    basis = jnp.concatenate([feats[:lo], scaled], axis=0)   # [F, H, W]
-
-    wpix = upsample(weights.reshape(cfg.n_blocks, F * 3))
-    w3 = wpix.reshape(F, 3, H, W)
-    color = jnp.sum(basis[:, None] * w3, axis=0)
-    return jnp.maximum(color, 0.0)

@@ -6,9 +6,10 @@ per-pixel Python loops — trustworthy but only usable on tiny fixtures.
 This module restates the same kernels (accumulate_noisy_data
 opencl/bmfr.cl:290-485, weighted_sum :703-758, accumulate_filtered_data
 :761-857, taa :860-974) as dense NumPy array programs so 1280x720
-frames run in seconds; the fitter (:490-700) is reused *verbatim* from
-the literal oracle (984 per-block Python loops are fast enough). It
-shares no code with the JAX pipeline; ``tests/test_oracle_vec.py``
+frames run in seconds; the fitter (:490-700) restates the literal
+oracle's per-block loop with the block index as a leading array axis
+(same statements, same order, all blocks at once). It shares no code
+with the JAX pipeline; ``tests/test_oracle_vec.py``
 pins it to the literal oracle on small fixtures, which transfers the
 literal oracle's trust to full resolution.
 
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .reference import (_BLOCK_OFFSETS, OracleState, fitter)
+from .reference import _BLOCK_OFFSETS, OracleState, _noise_vector
 
 f32 = np.float32
 
@@ -152,6 +153,107 @@ def accumulate_noisy_data_vec(cfg, state, normals, positions, noisy,
     acc_out[py[inim], px[inim]] = accept[inim]
     return dict(accum=accum, spp=spp_out, prev_pixels=pp_out,
                 accept=acc_out, tmp=tmp)
+
+
+def _store_tmp_vec(x, cfg):
+    """fp16 round-trip when tmp_data is half (opencl/bmfr.cl:255-265)."""
+    if cfg.tmp_data_dtype == "float16":
+        return x.astype(np.float16).astype(f32)
+    return x.astype(f32)
+
+
+def fitter_vec(cfg, tmp, frame):
+    """:func:`bmfr_tpu.oracle.reference.fitter` over all blocks at once
+    (opencl/bmfr.cl:490-700): min/max scaling, Householder QR with the
+    noise-once rule and the literal ``r_value`` stores, then the literal
+    in-place back substitution. ``tmp`` ``[n_blocks, buffers, bp]`` is
+    modified in place. Returns (weights, mins_maxs)."""
+    buffers = cfg.buffer_count
+    F = cfg.feature_count
+    r_edge = buffers - 2
+    bp = cfg.block_pixels
+    nns = cfg.features_not_scaled_count
+    data = tmp
+    nb = data.shape[0]
+
+    # --- per-block min/max scaling (opencl/bmfr.cl:511-542) ---
+    mins_maxs = np.zeros((nb, cfg.features_scaled_count, 2), f32)
+    for f in range(nns, F):
+        bmin = data[:, f].min(axis=-1).astype(f32)
+        bmax = data[:, f].max(axis=-1).astype(f32)
+        mins_maxs[:, f - nns, 0] = bmin
+        mins_maxs[:, f - nns, 1] = bmax
+        span = bmax - bmin
+        with np.errstate(divide="ignore", invalid="ignore"):
+            scaled = np.where((np.abs(span) > 1.0)[:, None],
+                              (data[:, f] - bmin[:, None]) / span[:, None],
+                              data[:, f] - bmin[:, None])
+        data[:, f] = _store_tmp_vec(scaled, cfg)
+
+    # --- Householder QR (opencl/bmfr.cl:546-656) ---
+    R = np.zeros((nb, r_edge, r_edge, 3), f32)
+    limit = buffers - 1 if buffers == bp else buffers
+    noised = np.zeros(buffers, bool)
+    idx = np.arange(bp)
+    for col in range(limit):
+        col_limited = min(col, buffers - 3)
+        u_vec = data[:, col].astype(f32).copy()
+        vec_length = np.sum(np.where(idx >= col_limited + 1,
+                                     u_vec * u_vec, f32(0.0)),
+                            axis=-1, dtype=f32)
+        u_length_squared = vec_length
+        head_in = u_vec[:, col_limited]
+        vec_length = np.sqrt(vec_length + head_in * head_in).astype(f32)
+        u_vec_head = (head_in - vec_length).astype(f32)
+        u_length_squared = (u_length_squared
+                            + u_vec_head * u_vec_head).astype(f32)
+
+        # r_value stores (opencl/bmfr.cl:574-600)
+        for wid in range(r_edge + 2):
+            if wid < col:
+                r_value = u_vec[:, wid]
+            elif wid == col:
+                r_value = vec_length
+            else:
+                r_value = f32(0.0)
+            id_limited = min(wid, buffers - 3)
+            if col < buffers - 3:
+                R[:, col_limited, id_limited] = np.asarray(
+                    r_value, f32)[..., None] if np.ndim(r_value) else r_value
+            else:
+                R[:, col_limited, id_limited, col - (buffers - 3)] = r_value
+
+        u = u_vec.copy()
+        u[:, col_limited] = u_vec_head
+        u[:, idx < col_limited] = 0.0
+
+        mask = idx >= col_limited
+        for f in range(col_limited + 1, buffers):
+            vals = data[:, f].astype(f32).copy()
+            if col == 0 and f < buffers - 3 and not noised[f]:
+                vals = vals + _noise_vector(f, frame, cfg)[None]
+                noised[f] = True
+            dot = np.sum(np.where(mask, vals * u, f32(0.0)), axis=-1,
+                         dtype=f32)
+            newvals = (vals - f32(2.0) * u * dot[:, None]
+                       / u_length_squared[:, None]).astype(f32)
+            data[:, f] = np.where(mask, _store_tmp_vec(newvals, cfg),
+                                  data[:, f])
+
+    # --- back substitution (opencl/bmfr.cl:658-692), literal in-place ---
+    for i in range(r_edge - 2, -1, -1):
+        divider = R[:, i, i].copy()
+        for wid in range(r_edge):
+            if wid >= i:  # COMPRESSED_R guard (opencl/bmfr.cl:665)
+                R[:, wid, i] = R[:, wid, i] / divider
+        for j in range(i + 1, r_edge - 1):
+            R[:, r_edge - 1, i] = R[:, r_edge - 1, i] - R[:, j, i]
+        for wid in range(r_edge):
+            if i >= wid:  # COMPRESSED_R guard (opencl/bmfr.cl:683)
+                R[:, i, wid] = R[:, i, wid] * R[:, r_edge - 1, i]
+
+    weights = R[:, r_edge - 1, :F].astype(f32).copy()
+    return weights, mins_maxs
 
 
 def weighted_sum_vec(cfg, weights, mins_maxs, normals, positions, noisy,
@@ -300,12 +402,12 @@ def taa_vec(cfg, state, prev_pixels, new_frame, frame):
 
 def oracle_denoise_frame_vec(cfg, state, normals, positions, noisy,
                              albedo, prev_cam, pixel_offset, frame):
-    """One frame of the 5-kernel chain (opencl/bmfr.cpp:417-485), dense;
-    the fitter runs the literal per-block oracle."""
+    """One frame of the 5-kernel chain (opencl/bmfr.cpp:417-485),
+    dense."""
     k1 = accumulate_noisy_data_vec(cfg, state, normals, positions, noisy,
                                    prev_cam, pixel_offset, frame)
     tmp_prefit = k1["tmp"].copy()
-    weights, mins_maxs = fitter(cfg, k1["tmp"], frame)
+    weights, mins_maxs = fitter_vec(cfg, k1["tmp"], frame)
     filtered = weighted_sum_vec(cfg, weights, mins_maxs, normals,
                                 positions, k1["accum"], frame)
     out, tone = accumulate_filtered_data_vec(

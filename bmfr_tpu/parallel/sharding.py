@@ -2,24 +2,22 @@
 
 The reference is strictly single-device (one in-order OpenCL queue,
 opencl/bmfr.cpp:191); its only parallelism beyond the GPU grid is a host-side
-OpenMP loop over frames for file IO (opencl/bmfr.cpp:259). The TPU-native
-scale-out axis, per SURVEY.md §2.4, is *data parallelism over scenes*: the
-7-scene dataset (README.md:10-12) denoised concurrently on a v5e-8 slice,
-one scene (or scene-shard) per chip. The temporal recurrence is inherently
+OpenMP loop over frames for file IO (opencl/bmfr.cpp:259). The scale-out
+axis, per SURVEY.md §2.4, is *data parallelism over scenes*: the 7-scene
+dataset (README.md:10-12) denoised concurrently on several GPUs, one scene
+(or scene-shard) per device. The temporal recurrence is inherently
 frame-serial, so frames stay on-chip; no collectives are needed inside the
 algorithm — at most an all-gather of metrics at the end, which XLA inserts
 automatically when the result is read.
 
 Implementation: ``shard_map`` over a 1-D ``Mesh`` with the scene batch axis
-sharded. Each chip runs the identical ``lax.scan`` frame chain on its
+sharded. Each device runs the identical ``lax.scan`` frame chain on its
 scenes. There is no TP/PP/EP/CP: the reference has no tensors to shard, no
 sequence dimension, no experts — inventing them would be worse than useless
 (SURVEY.md §2.4).
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 from jax.sharding import Mesh, PartitionSpec as P
@@ -51,7 +49,8 @@ def denoise_scenes_sharded(cfg, mesh, inputs: FrameInputs, camera_matrices,
     )
 
     def per_shard(shard_inputs, cams, offs):
-        # vmap over the local scenes of this chip; scan inside over frames.
+        # vmap over the local scenes of this device; scan inside over
+        # frames.
         def one_scene(sc_inputs, sc_cams, sc_offs):
             return denoise_sequence(cfg, sc_inputs, sc_cams, sc_offs)
 
@@ -60,27 +59,8 @@ def denoise_scenes_sharded(cfg, mesh, inputs: FrameInputs, camera_matrices,
     # check_vma=False: pallas_call out_shapes carry no varying-mesh-axes
     # annotation; correctness of the sharded result is asserted
     # numerically against the unsharded computation in
-    # __graft_entry__.dryrun_multichip and tests/test_sharding.py.
-    # Eager shard_map (jit-of-shard_map trips an Auto/Manual mesh
-    # mismatch inside the interpret-mode pallas_call on CPU meshes).
-    # CAVEAT: eager shard_map of the interpret path can leak a
-    # ShardMapTracer into a JAX-internal trace cache and poison a LATER
-    # trace in the same process (observed, rarely, as 'must override:
-    # ShardMapTracer' from an unrelated lax.scan) — order compile work
-    # before sharded runs where determinism matters
-    # (__graft_entry__.dryrun_multichip does).
-    fn = jax.shard_map(
+    # tests/test_sharding.py and chip_smoke.py --four-cards.
+    fn = jax.jit(jax.shard_map(
         per_shard, mesh=mesh, in_specs=spec_in, out_specs=P(axis_name),
-        check_vma=False)
+        check_vma=False))
     return fn(inputs, camera_matrices, pixel_offsets)
-
-
-def denoise_scenes_jit(cfg, mesh, axis_name="scenes"):
-    """A jitted entry with sharding constraints for repeated use."""
-
-    @functools.partial(jax.jit)
-    def run(inputs, cams, offs):
-        return denoise_scenes_sharded(
-            cfg, mesh, inputs, cams, offs, axis_name)
-
-    return run

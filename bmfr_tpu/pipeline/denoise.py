@@ -1,6 +1,6 @@
 """The per-frame denoise step and the frame-sequence scan.
 
-This is the TPU equivalent of the reference's per-frame 5-kernel chain
+This is the equivalent of the reference's per-frame 5-kernel chain
 (opencl/bmfr.cpp:417-485): one pure jitted function
 ``state, inputs -> state, outputs`` per frame, and a ``jax.lax.scan`` over a
 stacked 60-frame animation for throughput runs. The public per-frame API
@@ -39,51 +39,24 @@ class FrameInputs(NamedTuple):
     albedo: jnp.ndarray
 
 
-class PackedState(NamedTuple):
-    """The recurrent state carried as the fused warp's ch-pair bf16
-    pack: all 16 recurrent channels (positions 3, normals 3, noisy 3,
-    spp 1, out 3, result 3 — :func:`bmfr_tpu.ops.warp.pack_pairs_bf16`
-    order) in one i32 word array, stored directly in the warp kernel's
-    padded window layout ``[8, Hp, Wp]``
-    (:func:`bmfr_tpu.ops.warp_pallas.padded_src_shape`).
-
-    Valid only with ``warp_mode="pallas"``: every consumer of the
-    previous frame's buffers reads them through bf16-rounded taps
-    (pipeline/denoise.py warp scope), so rounding at state-store
-    instead of at tap-read produces bit-identical taps while halving
-    the scan-carry footprint and deleting the per-frame 16-plane
-    concat+pack (the reference's double-buffer swap — opencl/
-    bmfr.cpp:482-484 — moves no bytes either). Storing the pack
-    pre-padded additionally deletes the warp's per-frame 41 MB pad —
-    the pad fuses into the state-store, which writes the bytes anyway.
-    """
-
-    src8: jnp.ndarray       # i32[8, Hp, Wp]
-
-
 def denoise_frame(cfg, state, inputs: FrameInputs,
                   prev_cam, pixel_offset, frame, history="dynamic"):
     """Run the full 5-stage chain for one frame.
 
-    ``state``: a :class:`TemporalState` (raw f32 planes) or, with
-    ``warp_mode="pallas"``, a :class:`PackedState`; a packed state is
-    returned packed. ``history`` statically pins the history branch:
-    ``"dynamic"`` gates on ``frame > 0`` under ``lax.cond`` (the
-    general per-frame API), ``"never"``/``"always"`` compile only the
-    corresponding branch (the sequence scan hoists frame 0 out, so its
-    steady-state body carries no conditional and none of the cond's
-    buffer copies).
+    ``history`` statically pins the history branch: ``"dynamic"`` gates
+    on ``frame > 0`` under ``lax.cond`` (the general per-frame API),
+    ``"never"``/``"always"`` compile only the corresponding branch (the
+    sequence scan hoists frame 0 out, so its steady-state body carries no
+    conditional and none of the cond's buffer copies).
 
     Returns ``(new_state, outputs)`` where outputs is a dict holding the
     final ``result`` plus the intermediates needed for testing/debugging.
 
-    TPU note: the three temporal stages sample the *same* reprojected
-    coordinates (K4/K5 reuse the prev-pixel map K1 stores,
-    opencl/bmfr.cpp:376,382). On TPU the gather cost is dominated by a
-    fixed price per index set, nearly independent of how many channels
-    ride along — so all 16 recurrent channels (positions 3, normals 3,
-    noisy 3, spp 1, out 3, result 3) are fetched in ONE stacked gather per
-    bilinear tap here, and the per-stage tap values are passed down.
+    The three temporal stages sample the *same* reprojected coordinates
+    (K4/K5 reuse the prev-pixel map K1 stores, opencl/bmfr.cpp:376,382),
+    so all 16 recurrent channels (positions 3, normals 3, noisy 3, spp 1,
+    out 3, result 3) are fetched in one stacked gather per bilinear tap
+    here, and the per-stage tap values are passed down.
     """
     from ..ops.gather import floor_int
     from ..ops.reproject import reproject_coords
@@ -93,10 +66,6 @@ def denoise_frame(cfg, state, inputs: FrameInputs,
     # attribute device time per stage (bmfr_tpu/xplane.py; the analogue
     # of the reference's per-kernel CL event timers, bmfr.cpp:386-412)
     H, W = cfg.image_height, cfg.image_width
-    fused = cfg.warp_mode == "pallas"
-    packed = isinstance(state, PackedState)
-    assert not (packed and not fused), (
-        "PackedState requires warp_mode='pallas'")
     assert history in ("dynamic", "never", "always"), history
 
     def gate(fetch, no_history):
@@ -112,117 +81,39 @@ def denoise_frame(cfg, state, inputs: FrameInputs,
         ix = floor_int(pfx)
         iy = floor_int(pfy)
 
-        def stack_state():
-            return jnp.concatenate(
+        def fetch(_):
+            stacked = jnp.concatenate(
                 [state.positions, state.normals, state.noisy,
                  state.spp.astype(jnp.float32)[None], state.out,
                  state.result], axis=0)                # [16, H, W]
+            return gather_taps(stacked, iy, ix, mode=cfg.warp_mode)
 
-        def state_seed():
-            # derived from state so both history branches carry the
-            # same device-variance under shard_map
-            if packed:
-                from ..ops.warp_pallas import P_L, P_T3
+        def no_history(_):
+            # At frame 0 every consumer masks its taps out. Derived from
+            # state so both branches carry the same device-variance under
+            # shard_map.
+            return state.result[0][None, None] * 0.0 + jnp.zeros(
+                (4, 16, H, W), jnp.float32)
 
-                return (state.src8[0, P_T3:P_T3 + H, P_L:P_L + W]
-                        * 0).astype(jnp.float32)
-            return state.result[0] * 0.0
-
-        # At frame 0 every consumer masks its taps out (no history), and
-        # the frame-0 pseudo-reprojection field is wild enough to push
-        # the Pallas warp into its whole-frame fallback — skip the fetch.
-        if fused:
-            from ..ops.warp_pallas import BLEND_PLANES, warp_blend_pallas
-
-            def fetch(_):
-                cur6 = jnp.concatenate(
-                    [inputs.positions, inputs.normals], axis=0)
-                if packed:
-                    return warp_blend_pallas(cfg, None, cur6, pfx, pfy,
-                                             src8=state.src8)
-                return warp_blend_pallas(cfg, stack_state(), cur6,
-                                         pfx, pfy)
-
-            def no_history(_):
-                return (state_seed()[None] + jnp.zeros(
-                    (BLEND_PLANES, H, W), jnp.float32),
-                    jnp.zeros((6,), jnp.int32))
-
-            planes, warp_stats = gate(fetch, no_history)
-            pre = dict(
-                k1_color_sum=planes[0:3], k1_spp_sum=planes[3],
-                total_weight=planes[4],
-                accept=planes[5].astype(jnp.uint8),
-                k4_out_sum=planes[6:9], k5_result_sum=planes[9:12],
-                k5_weight=planes[12])
-            taps_k1 = taps_k4 = taps_k5 = pre
-        else:
-            warp_stats = jnp.zeros((6,), jnp.int32)
-            def fetch(_):
-                return gather_taps(stack_state(), iy, ix,
-                                   mode=cfg.warp_mode)
-
-            def no_history(_):
-                return state_seed()[None, None] + jnp.zeros(
-                    (4, 16, H, W), jnp.float32)
-
-            all_taps = gate(fetch, no_history)
-            taps_k1 = all_taps[:, 0:10]
-            taps_k4 = all_taps[:, 10:13]
-            taps_k5 = all_taps[:, 13:16]
+        all_taps = gate(fetch, no_history)
+        taps_k1 = all_taps[:, 0:10]
+        taps_k4 = all_taps[:, 10:13]
+        taps_k5 = all_taps[:, 13:16]
 
     with jax.named_scope("k1_accumulate_noisy"):
-        # with pre-blended taps (fused warp) the prev_* buffers are
-        # never read — a PackedState has no raw planes to pass
-        prev3 = (None,) * 4 if packed else (
-            state.normals, state.positions, state.noisy, state.spp)
         k1 = accumulate_noisy_data(
             cfg, inputs.normals, inputs.positions, inputs.noisy,
-            *prev3, prev_cam, pixel_offset, frame, taps=taps_k1)
+            state.normals, state.positions, state.noisy, state.spp,
+            prev_cam, pixel_offset, frame, taps=taps_k1)
 
-    direct = cfg.fitter_impl == "pallas_direct" and cfg.block_edge == 32
-    weights = mins_maxs = None   # not materialized on the fused path
-    if direct and cfg.skip_fitting:
+    weights = mins_maxs = None   # not materialized by the fused fitter
+    if cfg.skip_fitting:
         filtered = k1["accum"]
-    elif direct:
-        from ..ops.blockify import (blockify_padded, blockify_view,
-                                    jitter_offset, jitter_origin)
-        from ..ops.fitter_direct import (DMA_SLACK, _pads_for_direct,
-                                         fit_reconstruct_cholesky,
-                                         fit_reconstruct_direct)
-        fit_reconstruct = (fit_reconstruct_cholesky
-                           if cfg.solver == "cholesky"
-                           else fit_reconstruct_direct)
+    elif cfg.fitter_impl == "fused":
+        from ..ops.fitter_fused import filtered_fused
 
-        mw_pad = _pads_for_direct(cfg)[1]
-        with jax.named_scope("k2_blockify"):
-            # raw planes only — feature build + the K1 store contract +
-            # scale + noise all run inside the fused direct kernel.
-            # Mirror pad ONLY: the per-frame jitter rides the kernel's
-            # tile DMA origins, so the 36 MB jittered-view copy
-            # (0.12 ms/frame) never materializes.
-            raw9 = jnp.concatenate(
-                [inputs.normals, inputs.positions, k1["accum"]], axis=0)
-            padded9, tw = blockify_padded(cfg, raw9, width=mw_pad,
-                                          slack=DMA_SLACK)
-            if tw == mw_pad:
-                origin = jitter_origin(cfg, frame)
-            else:
-                # image too small for the mirror to reach the chunk
-                # width: fall back to the sliced view + constant pad
-                padded9 = blockify_view(cfg, raw9, frame, width=tw)
-                origin = None
-        with jax.named_scope("k2_fitter"):
-            # K2+K3 fused: fit + back-substitute + reconstruct in VMEM
-            fview = fit_reconstruct(cfg, padded9, frame, origin=origin)
-        with jax.named_scope("k3_weighted_sum"):
-            # inverse jitter: image pixel (y, x) = view[y + half - off1,
-            # x + half - off0] (unblockify mapping, bmfr.cl:718-722)
-            half = cfg.block_edge // 2
-            off = jitter_offset(frame, cfg.block_edge)
-            filtered = jax.lax.dynamic_slice(
-                fview, (jnp.int32(0), half - off[1], half - off[0]),
-                (3, cfg.image_height, cfg.image_width))
+        filtered = filtered_fused(cfg, inputs.normals, inputs.positions,
+                                  k1["accum"], frame)
     else:
         with jax.named_scope("k2_blockify"):
             tmp = build_feature_blocks(
@@ -238,58 +129,24 @@ def denoise_frame(cfg, state, inputs: FrameInputs,
     with jax.named_scope("k4_accumulate_filtered"):
         out, tone = accumulate_filtered_data(
             cfg, filtered, k1["prev_pixels"], k1["accept"], inputs.albedo,
-            k1["spp"], None if packed else state.out, frame,
-            taps=taps_k4)
+            k1["spp"], state.out, frame, taps=taps_k4)
 
     with jax.named_scope("k5_taa"):
-        result = taa(cfg, k1["prev_pixels"], tone,
-                     None if packed else state.result, frame,
+        result = taa(cfg, k1["prev_pixels"], tone, state.result, frame,
                      taps=taps_k5)
 
-    if packed:
-        from ..ops.warp import pack_pairs_bf16
-        from ..ops.warp_pallas import P_L, P_T3
-
-        with jax.named_scope("state_pack"):
-            # stored directly in the warp kernel's padded layout, as an
-            # in-place interior update of the (donated) carry buffer:
-            # the border zeros are frame-invariant, so only the 29.5 MB
-            # interior is written — no pad pass, no 41 MB zero fill
-            # (measured: a fresh jnp.pad here costs 0.06 ms/frame).
-            # Packed per PRODUCER GROUP with one word-range DUS each —
-            # a single 16-plane concat forced XLA to materialize a
-            # 29.5 MB bf16[16, H, W] stack assembled by three DUS
-            # fusions and ping-ponged through two more copies (round-5
-            # scan trace: ~0.16 ms/frame unattributed); per-group packs
-            # fuse into their producers and write the carry directly.
-            # Channel pairing is unchanged (groups split at even
-            # channel indices 0/6/10), so the words are bit-identical.
-            w_geo = pack_pairs_bf16(jnp.concatenate(
-                [inputs.positions, inputs.normals], axis=0))
-            w_acc = pack_pairs_bf16(jnp.concatenate(
-                [k1["accum"], k1["spp"].astype(jnp.float32)[None]],
-                axis=0))
-            w_out = pack_pairs_bf16(jnp.concatenate(
-                [out, result], axis=0))
-            s = jax.lax.dynamic_update_slice(
-                state.src8, w_geo, (0, P_T3, P_L))
-            s = jax.lax.dynamic_update_slice(s, w_acc, (3, P_T3, P_L))
-            s = jax.lax.dynamic_update_slice(s, w_out, (5, P_T3, P_L))
-            new_state = PackedState(src8=s)
-    else:
-        new_state = TemporalState(
-            normals=inputs.normals,
-            positions=inputs.positions,
-            noisy=k1["accum"],
-            spp=k1["spp"],
-            out=out,
-            result=result,
-        )
+    new_state = TemporalState(
+        normals=inputs.normals,
+        positions=inputs.positions,
+        noisy=k1["accum"],
+        spp=k1["spp"],
+        out=out,
+        result=result,
+    )
     outputs = dict(
         result=result, tone=tone, out=out, filtered=filtered,
         accum=k1["accum"], spp=k1["spp"], prev_pixels=k1["prev_pixels"],
         accept=k1["accept"], weights=weights, mins_maxs=mins_maxs,
-        warp_stats=warp_stats,
     )
     return new_state, outputs
 
@@ -314,43 +171,25 @@ def make_denoise_frame(cfg, donate=True):
 
 
 def denoise_sequence(cfg, inputs: FrameInputs, camera_matrices,
-                     pixel_offsets, lite_outputs=True, initial_state=None,
-                     return_stats=False):
+                     pixel_offsets, lite_outputs=True, initial_state=None):
     """Denoise a stacked animation with ``lax.scan``.
 
     inputs: FrameInputs with a leading time axis ``[T, 3, H, W]``;
     camera_matrices ``f32[T, 4, 4]``; pixel_offsets ``f32[T, 2]``.
     Returns the stacked TAA results ``f32[T, 3, H, W]`` (plus tone-mapped
-    frames when ``lite_outputs`` is False). With ``return_stats`` the
-    per-frame warp engagement records ``i32[T, 6]`` ride along
-    (``[n_uncovered, fallback, tiles_p0, tiles_p1, tiles_p2,
-    kernel_served_pixels]`` — all zero for non-fused warp modes), so the
-    bench and tests can prove which warp tier actually served each
-    frame.
+    frames when ``lite_outputs`` is False).
     """
-    T = inputs.noisy.shape[0]
     if initial_state is None:
         # Derive from the inputs (not fresh constants) so device-varying
         # axes propagate correctly under shard_map (see parallel/sharding).
-        if cfg.warp_mode == "pallas":
-            from ..ops.warp_pallas import padded_src_shape
-
-            # fused mode carries the state as the warp's bf16 ch-pair
-            # pack in the kernel's padded layout: half the carry bytes,
-            # no per-frame concat+pack or pad, bit-identical taps
-            # (see PackedState)
-            H, W = inputs.noisy.shape[-2:]
-            state = PackedState(src8=(
-                (inputs.noisy[0, 0, 0, 0] * 0).astype(jnp.int32)
-                + jnp.zeros((8,) + padded_src_shape(H, W), jnp.int32)))
-        else:
-            z3 = jnp.zeros_like(inputs.noisy[0])
-            state = TemporalState(
-                normals=z3, positions=z3, noisy=z3,
-                spp=jnp.zeros_like(inputs.noisy[0, 0], dtype=jnp.uint8),
-                out=z3, result=z3)
+        z3 = jnp.zeros_like(inputs.noisy[0])
+        state = TemporalState(
+            normals=z3, positions=z3, noisy=z3,
+            spp=jnp.zeros_like(inputs.noisy[0, 0], dtype=jnp.uint8),
+            out=z3, result=z3)
     else:
         state = initial_state
+    T = inputs.noisy.shape[0]
 
     def step(state, t, history):
         prev_cam = camera_matrices[jnp.maximum(t - 1, 0)]
@@ -363,11 +202,9 @@ def denoise_sequence(cfg, inputs: FrameInputs, camera_matrices,
         new_state, outputs = denoise_frame(
             cfg, state, frame_in, prev_cam, pixel_offsets[t], t,
             history=history)
-        ys = ((outputs["result"],) if lite_outputs
-              else (outputs["result"], outputs["tone"]))
-        if return_stats:
-            ys = ys + (outputs["warp_stats"],)
-        return new_state, ys if len(ys) > 1 else ys[0]
+        if lite_outputs:
+            return new_state, outputs["result"]
+        return new_state, (outputs["result"], outputs["tone"])
 
     # Frame 0 statically has no history: hoisting it out of the scan
     # removes the ``frame > 0`` conditional (and its buffer copies)

@@ -7,7 +7,7 @@ a background thread (the native pthread loader when built) and uploaded
 with ``jax.device_put`` while the device scans the previous chunk — the
 temporal recurrence carries across chunks through the ``TemporalState``.
 
-Single-scene streaming runs on one chip; multiple scenes stream
+Single-scene streaming runs on one device; multiple scenes stream
 concurrently with one worker per scene/device (scene data parallelism).
 """
 

@@ -30,8 +30,7 @@ import time
 import numpy as np
 
 
-def xplane_report(cfg, state, inputs, cam, off, frame, reps=3,
-                  logdir="/tmp/bmfr_trace"):
+def xplane_report(cfg, state, inputs, cam, off, frame, logdir, reps=3):
     """Trace the fused frame and print per-stage *device* milliseconds."""
     import shutil
 
@@ -39,16 +38,16 @@ def xplane_report(cfg, state, inputs, cam, off, frame, reps=3,
 
     from . import xplane
     from .pipeline.denoise import denoise_frame
-    from .profiling import force, trace
+    from .profiling import trace
 
     jfn = jax.jit(lambda *a: denoise_frame(cfg, *a)[1]["result"])
     args = (state, inputs, cam, off, frame)
     compiled = jfn.lower(*args).compile()
-    force(jfn(*args))  # warm (also catches cache divergence)
+    jax.block_until_ready(jfn(*args))  # warm
     shutil.rmtree(logdir, ignore_errors=True)
     with trace(logdir):
         for _ in range(reps):
-            force(jfn(*args))
+            jax.block_until_ready(jfn(*args))
     per, other, total = xplane.stage_device_times(
         logdir, hlo_text=compiled.as_text())
     print(f"Per-stage DEVICE time over {reps} frames "
@@ -68,9 +67,15 @@ def main(argv=None):
     p.add_argument("--height", type=int, default=720)
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--warp-mode", default="packed_x_bf16")
+    p.add_argument("--fitter-impl", default="xla", choices=["xla", "fused"])
+    p.add_argument("--solver", default="householder",
+                   choices=["householder", "cholesky"])
     p.add_argument("--xplane", action="store_true",
                    help="per-stage device times from an XLA profiler "
                         "trace (sums to ~the fused frame time)")
+    p.add_argument("--trace-dir", default=None,
+                   help="profiler output directory (default: traces/ "
+                        "in the checkout)")
     args = p.parse_args(argv)
 
     import jax
@@ -85,15 +90,15 @@ def main(argv=None):
     from .ops.taa import taa
     from .ops.weighted_sum import weighted_sum
     from .pipeline.denoise import FrameInputs, denoise_frame
-    from .profiling import ProfilingInfo, force, print_report
+    from .profiling import ProfilingInfo, print_report
 
     H, W = args.height, args.width
     cfg = BMFRConfig(image_width=W, image_height=H,
                      position_limit_squared=0.03, normal_limit_squared=0.5,
-                     warp_mode=args.warp_mode).validate()
+                     warp_mode=args.warp_mode, fitter_impl=args.fitter_impl,
+                     solver=args.solver).validate()
     # profile a steady mid-sequence transition (the 0->1 transition of
-    # the synthetic scene is a camera teleport — it exercises the warp
-    # fallback, not the typical frame)
+    # the synthetic scene is a camera teleport, not the typical frame)
     sc = synthetic_sequence(width=W, height=H, frames=5)
     t = 4
     c = lambda a: jnp.asarray(np.moveaxis(a, -1, 0).astype(np.float32))
@@ -108,12 +113,15 @@ def main(argv=None):
     frame = jnp.int32(t)
 
     if args.xplane:
-        from .pipeline.denoise import FrameInputs
+        import os
+
         from .pipeline.state import TemporalState
+        from .runtime import REPO_ROOT
 
         state = TemporalState(pn, pp, pnz, pspp, pnz, pnz)
         inputs = FrameInputs(normals, positions, noisy, albedo)
         xplane_report(cfg, state, inputs, cam, off, frame,
+                      args.trace_dir or os.path.join(REPO_ROOT, "traces"),
                       reps=args.reps)
         return 0
 
@@ -121,13 +129,11 @@ def main(argv=None):
 
     def bench(label, fn, *fargs):
         jfn = jax.jit(fn)
-        out = jfn(*fargs)
-        force(out)
+        out = jax.block_until_ready(jfn(*fargs))
         info = ProfilingInfo(label)
         for _ in range(args.reps):
             t0 = time.perf_counter()
-            out = jfn(*fargs)
-            force(out)
+            out = jax.block_until_ready(jfn(*fargs))
             info.append((time.perf_counter() - t0) * 1e3)
         rows.append(info)
         return out

@@ -1,39 +1,39 @@
 """XPlane trace parsing: per-stage on-device timings.
 
 The reference reports per-kernel device times from CL events
-(opencl/bmfr.cpp:386-412, 488-517; CLUtils.hpp:439-494). The TPU
-equivalent: capture an XLA profiler trace (``profiling.trace``), parse
-the ``.xplane.pb`` protobuf it writes, and attribute each device op's
-duration to a pipeline stage via the ``jax.named_scope`` annotations the
-pipeline carries (bmfr_tpu/pipeline/denoise.py).
+(opencl/bmfr.cpp:386-412, 488-517; CLUtils.hpp:439-494). The equivalent
+here: capture an XLA profiler trace (``profiling.trace``), parse the
+``.xplane.pb`` protobuf it writes, and attribute each GPU kernel's duration
+to a pipeline stage via the ``jax.named_scope`` annotations the pipeline
+carries (bmfr_tpu/pipeline/denoise.py).
 
 The xplane schema is decoded with a minimal protobuf wire-format reader
 (no tensorflow/tensorboard dependency): XSpace { planes=1 }, XPlane
-{ name=2, lines=3, event_metadata=4 (map) }, XLine { name=2, events=4 },
-XEvent { metadata_id=1, offset_ps=2, duration_ps=3 }, XEventMetadata
-{ id=1, name=2, display_name=4 }.
+{ name=2, lines=3, event_metadata=4 (map), stat_metadata=5 (map) },
+XLine { name=2, timestamp_ns=3, events=4 }, XEvent { metadata_id=1, offset_ps=2,
+duration_ps=3, stats=4 }, XStat { metadata_id=1, str_value=5,
+ref_value=7 }, XEventMetadata / XStatMetadata { id=1, name=2,
+display_name=4 }.
+
+Device planes are the ``/device:GPU:<n>`` planes. Their lines are CUDA
+streams; an event is one kernel or copy. A fusion's kernel is named after
+its HLO instruction with ``.`` written as ``_`` (``%loop_add_fusion.3`` runs
+as ``loop_add_fusion_3``); a Pallas kernel carries its own ``name``, which
+is also a component of its custom call's ``op_name``. (The ``hlo_op`` stat
+names the command buffer that launched the kernel, not the kernel.)
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import re
 from collections import defaultdict
 
 #: Stage scope names emitted by the pipeline (jax.named_scope) in
 #: reference kernel order (opencl/bmfr.cpp:446-476).
 STAGE_SCOPES = (
-    # warp sub-scopes first: the matcher takes the first scope substring
-    # found in op_name, and these nest inside warp_taps
-    "warp_pack",
-    "warp_plan",
-    "warp_kernel",
-    "warp_fixup_compact",
-    "warp_fixup_scatter",
-    "warp_fixup",
-    "warp_fallback",
     "warp_taps",
-    "state_pack",
     "k1_accumulate_noisy",
     "k2_blockify",
     "k2_fitter",
@@ -41,7 +41,6 @@ STAGE_SCOPES = (
     "k4_accumulate_filtered",
     "k5_taa",
 )
-
 
 class _Wire:
     def __init__(self, buf, start=0, end=None):
@@ -86,6 +85,7 @@ class _Wire:
 
 def _parse_event(buf, span):
     md_id = offset_ps = dur_ps = 0
+    stats = []
     for fnum, wt, val in _Wire(buf, *span).fields():
         if fnum == 1 and wt == 0:
             md_id = val
@@ -93,7 +93,22 @@ def _parse_event(buf, span):
             offset_ps = val
         elif fnum == 3 and wt == 0:
             dur_ps = val
-    return md_id, offset_ps, dur_ps
+        elif fnum == 4 and wt == 2:
+            stats.append(_parse_stat(buf, val))
+    return md_id, offset_ps, dur_ps, stats
+
+
+def _parse_stat(buf, span):
+    """(stat_metadata_id, str value | ("ref", stat_metadata_id) | None)."""
+    md_id, value = 0, None
+    for fnum, wt, val in _Wire(buf, *span).fields():
+        if fnum == 1 and wt == 0:
+            md_id = val
+        elif fnum == 5 and wt == 2:
+            value = buf[val[0] : val[1]].decode("utf-8", "replace")
+        elif fnum == 7 and wt == 0:
+            value = ("ref", val)
+    return md_id, value
 
 
 def exclusive_durations(events):
@@ -116,14 +131,20 @@ def exclusive_durations(events):
 
 
 def _parse_line(buf, span):
+    """-> (name, events) with event offsets made absolute (the line's
+    ``timestamp_ns`` plus the event's own ``offset_ps``), so events of
+    different streams share one clock."""
     name = ""
+    ts_ps = 0
     events = []
     for fnum, wt, val in _Wire(buf, *span).fields():
         if fnum == 2 and wt == 2:
             name = buf[val[0] : val[1]].decode("utf-8", "replace")
+        elif fnum == 3 and wt == 0:
+            ts_ps = val * 1000
         elif fnum == 4 and wt == 2:
             events.append(_parse_event(buf, val))
-    return name, events
+    return name, [(md, ts_ps + off, dur, st) for md, off, dur, st in events]
 
 
 def _parse_event_metadata(buf, span):
@@ -140,20 +161,37 @@ def _parse_event_metadata(buf, span):
 
 
 def _parse_plane(buf, span):
+    """-> (name, lines, meta) where ``lines`` is ``[(line_name,
+    [(event_name, offset_ps, dur_ps, {stat_name: str})])]``."""
     name = ""
-    lines = []
+    raw_lines = []
     meta = {}
+    stat_names = {}
     for fnum, wt, val in _Wire(buf, *span).fields():
         if fnum == 2 and wt == 2:
             name = buf[val[0] : val[1]].decode("utf-8", "replace")
         elif fnum == 3 and wt == 2:
-            lines.append(_parse_line(buf, val))
-        elif fnum == 4 and wt == 2:
-            # map entry { key=1, value=2 (XEventMetadata) }
+            raw_lines.append(_parse_line(buf, val))
+        elif fnum in (4, 5) and wt == 2:
+            # map entry { key=1, value=2 (XEventMetadata/XStatMetadata) }
             for f2, w2, v2 in _Wire(buf, *val).fields():
                 if f2 == 2 and w2 == 2:
                     mid, mname = _parse_event_metadata(buf, v2)
-                    meta[mid] = mname
+                    (meta if fnum == 4 else stat_names)[mid] = mname
+
+    def stat_dict(stats):
+        out = {}
+        for sid, value in stats:
+            if isinstance(value, tuple):
+                value = stat_names.get(value[1])
+            if value is not None:
+                out[stat_names.get(sid, str(sid))] = value
+        return out
+
+    lines = [(line_name,
+              [(meta.get(md, str(md)), off, dur, stat_dict(stats))
+               for md, off, dur, stats in events])
+             for line_name, events in raw_lines]
     return name, lines, meta
 
 
@@ -168,105 +206,121 @@ def parse_xspace(path):
     return planes
 
 
+def is_device_plane(name):
+    return name.startswith("/device:GPU:")
+
+
 def find_xplane_files(logdir):
     return sorted(glob.glob(
         os.path.join(logdir, "plugins", "profile", "*", "*.xplane.pb")))
 
 
-def device_op_durations(logdir, line_filter=("XLA Ops",),
-                        exclusive=True):
-    """Device-plane op events: list of (op_text, duration_ps).
+def device_lines(logdir):
+    """Yield ``(plane_name, line_name, events)`` for every kernel line of
+    every device plane; ``events`` are ``(op_text, offset_ps, dur_ps,
+    inst_name)``. Raises if the trace holds no device plane, so a run
+    that traced nothing on the device fails instead of reading empty."""
+    found = False
+    for path in find_xplane_files(logdir):
+        for name, lines, _meta in parse_xspace(path):
+            if not is_device_plane(name):
+                continue
+            found = True
+            for line_name, events in lines:
+                # kernels and copies live on the CUDA stream lines; any
+                # other line would count them twice
+                if not line_name.startswith("Stream"):
+                    continue
+                yield name, line_name, [
+                    (" ".join([n] + [v for v in st.values()
+                                     if isinstance(v, str)]),
+                     off, dur, n)
+                    for n, off, dur, st in events]
+    if not found:
+        raise RuntimeError(f"no GPU device plane in the trace at {logdir}")
 
-    Restricted to the "XLA Ops" line (module/overlay lines double-count
-    everything); with ``exclusive`` the durations of control-flow parent
-    events (cond/while) have their contained children subtracted so the
-    totals count device time exactly once.
+
+def device_op_durations(logdir, exclusive=True):
+    """Device op events: list of ``(op_text, duration_ps, inst_name)``.
+
+    With ``exclusive`` the durations of parent events that contain others
+    on the same line have their children subtracted, so the totals count
+    device time exactly once.
     """
     out = []
-    for path in find_xplane_files(logdir):
-        for name, lines, meta in parse_xspace(path):
-            if "/device:TPU" not in name and "TPU" not in name.split()[0]:
-                continue
-            for line_name, events in lines:
-                if line_filter and line_name not in line_filter:
-                    continue
-                named = [(meta.get(md, str(md)), off, dur)
-                         for md, off, dur in events]
-                if exclusive:
-                    for n, _o, _d, x in exclusive_durations(named):
-                        out.append((n, x))
-                else:
-                    for n, _o, d in named:
-                        out.append((n, d))
+    for _plane, _line, events in device_lines(logdir):
+        named = [(t, off, dur) for t, off, dur, _i in events]
+        insts = [i for _t, _o, _d, i in events]
+        if exclusive:
+            for (n, _o, _d, x), inst in zip(exclusive_durations(named),
+                                             insts):
+                out.append((n, x, inst))
+        else:
+            for (n, _o, d), inst in zip(named, insts):
+                out.append((n, d, inst))
     return out
 
 
-def device_busy_span(logdir, line_filter=("XLA Ops",)):
-    """(busy_ms, span_ms): summed event time vs wall span (first event
-    start to last event end) on the device op line. ``span - busy`` is
-    device idle — dispatch gaps, DMA waits outside ops, kernel launch
-    tails — which per-op attribution can never show; the difference
-    between the stage table's total and the fenced frame time lives
-    here (VERDICT r2 weak #7)."""
-    busy = 0.0
-    lo, hi = None, 0
-    for path in find_xplane_files(logdir):
-        for name, lines, meta in parse_xspace(path):
-            if "/device:TPU" not in name and "TPU" not in name.split()[0]:
-                continue
-            for line_name, events in lines:
-                if line_filter and line_name not in line_filter:
-                    continue
-                named = [(meta.get(md, str(md)), off, dur)
-                         for md, off, dur in events]
-                for _n, off, _d, x in exclusive_durations(named):
-                    busy += x
-                for _n, off, dur in named:
-                    lo = off if lo is None else min(lo, off)
-                    hi = max(hi, off + dur)
-    span = 0 if lo is None else hi - lo
+def device_busy_span(logdir):
+    """(busy_ms, span_ms): the union of device op intervals vs the wall
+    span (first op start to last op end) over all device lines.
+    ``span - busy`` is device idle — dispatch gaps and launch tails — which
+    per-op attribution can never show."""
+    intervals = []
+    for _plane, _line, events in device_lines(logdir):
+        intervals += [(off, off + dur) for _t, off, dur, _i in events]
+    if not intervals:
+        return 0.0, 0.0
+    intervals.sort()
+    busy = 0
+    cur_lo, cur_hi = intervals[0]
+    for lo, hi in intervals[1:]:
+        if lo > cur_hi:
+            busy += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    busy += cur_hi - cur_lo
+    span = max(h for _l, h in intervals) - intervals[0][0]
     return busy / 1e9, span / 1e9
 
 
 def scope_map_from_hlo(hlo_text, scopes=STAGE_SCOPES):
-    """instruction name -> stage scope, parsed from compiled HLO text
-    (the trace's op events carry the HLO text but not the op_name
-    metadata; the metadata lives in the compiled module)."""
-    import re
-
+    """kernel name -> stage scope, parsed from compiled HLO text (the
+    trace's kernel events carry no op_name; the metadata lives in the
+    compiled module). Keys are instruction names in their kernel spelling
+    (``.`` -> ``_``) and the names of Pallas kernels."""
     out = {}
     for m in re.finditer(
             r"%?([\w.\-]+) = [^\n]*?op_name=\"([^\"]*)\"", hlo_text):
         inst, op_name = m.group(1), m.group(2)
-        for scope in scopes:
-            if scope in op_name:
-                out[inst] = scope
-                break
+        scope = next((s for s in scopes if s in op_name), None)
+        if scope is None:
+            continue
+        out[inst.replace(".", "_")] = scope
+        parts = op_name.split("/")
+        if parts[-1] == "pallas_call" and len(parts) > 1:
+            out[parts[-2]] = scope
     return out
-
-
-def _event_inst_name(op_text):
-    """'%fusion.23 = f32[...' -> 'fusion.23'."""
-    head = op_text.split(" ", 1)[0]
-    return head[1:] if head.startswith("%") else head
 
 
 def stage_device_times(logdir, scopes=STAGE_SCOPES, hlo_text=None):
     """Aggregate exclusive device op durations by pipeline stage scope.
 
-    Attribution: the op's instruction name is looked up in the compiled
-    module's op_name metadata (``hlo_text``); ops without a match fall
-    back to substring search in the event text. Returns
+    Attribution: the op's instruction name (its ``hlo_op`` stat) is looked
+    up in the compiled module's op_name metadata (``hlo_text``); ops
+    without a match fall back to substring search in the event text. Returns
     ``(per_stage_ms, other_ms, total_ms)``.
     """
     smap = scope_map_from_hlo(hlo_text, scopes) if hlo_text else {}
     per = defaultdict(float)
     other = 0.0
     total = 0.0
-    for op_text, dur_ps in device_op_durations(logdir):
+    for op_text, dur_ps, inst in device_op_durations(logdir):
         ms = dur_ps / 1e9
         total += ms
-        scope = smap.get(_event_inst_name(op_text))
+        # repeated launches of one Pallas kernel get a "__<n>" suffix
+        scope = smap.get(inst) or smap.get(re.sub(r"__\d+$", "", inst))
         if scope is None:
             for s in scopes:
                 if s in op_text:

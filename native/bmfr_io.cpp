@@ -2,7 +2,7 @@
 //
 // The reference's host runtime is C++ (OpenImageIO EXR/PNG IO, OpenMP
 // parallel frame loading — opencl/bmfr.cpp:145-172, :252-313, :519-553).
-// This library provides the TPU build's equivalent without external image
+// This library provides this rebuild's equivalent without external image
 // deps: a scanline EXR reader/writer (NONE/ZIPS/ZIP compression, HALF and
 // FLOAT channels), a zlib-based PNG writer, and a pthread-parallel batch
 // loader. Exposed via a C ABI consumed through ctypes

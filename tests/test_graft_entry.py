@@ -1,18 +1,21 @@
 """Driver contract: dryrun_multichip must keep compiling+running on a
 virtual mesh between rounds (entry() is full-res and driver-tested)."""
 
+import os
 import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_dryrun_multichip_8():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     import __graft_entry__ as g
 
     g.dryrun_multichip(8)  # asserts internally (shapes + finiteness)
 
 
 def test_entry_returns_jittable():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     import jax
     import __graft_entry__ as g
 

@@ -1,5 +1,5 @@
-"""Round-2 regression tests: solver dispatch, fenced bench timing,
-small-block Pallas fitter, fidelity skip rows, reference discovery."""
+"""Round-2 regression tests: solver dispatch, device timing, small-block
+fused fitter, fidelity skip rows, reference discovery."""
 
 import numpy as np
 import pytest
@@ -28,9 +28,10 @@ def tiny_blocks(request):
 
 
 class TestSolverDispatch:
-    """cfg.solver must win over the backend choice (VERDICT weak #1: the
-    round-1 'cholesky' fidelity rows were byte-identical to Householder
-    because the Pallas kernel was dispatched before the solver check)."""
+    """cfg.solver and cfg.fitter_impl must both reach the code that runs
+    (the round-1 'cholesky' fidelity rows were byte-identical to
+    Householder because a kernel was dispatched before the solver
+    check)."""
 
     def test_cholesky_differs_from_householder(self, tiny_blocks):
         cfg, tmp = tiny_blocks
@@ -42,73 +43,104 @@ class TestSolverDispatch:
         # ...but not bit-identical (different factorization path actually ran)
         assert np.abs(np.asarray(w_c) - np.asarray(w_h)).max() > 0
 
-    def test_cholesky_never_reaches_pallas(self, tiny_blocks, monkeypatch):
-        cfg, tmp = tiny_blocks
-        import bmfr_tpu.ops.fitter_pallas as fp
+    @pytest.mark.parametrize("impl", ["xla", "fused"])
+    def test_fitter_impl_selects_the_path(self, tiny_blocks, impl,
+                                          monkeypatch):
+        """fitter_impl='fused' runs the fused kernel and nothing of the
+        XLA fitter; 'xla' never touches the kernel."""
+        import bmfr_tpu.ops.fitter_fused as ff
+        import bmfr_tpu.pipeline.denoise as dn
+        from bmfr_tpu import FrameInputs, TemporalState, denoise_frame
 
-        def boom(*a, **k):
-            raise AssertionError("pallas kernel must not run for cholesky")
+        cfg, _ = tiny_blocks
+        cfg = cfg.replace(fitter_impl=impl, pallas_interpret=True)
+        calls = []
 
-        monkeypatch.setattr(fp, "fit_blocks_pallas", boom)
-        w, _ = fit_blocks(cfg.replace(solver="cholesky", fitter_impl="auto"),
-                          tmp, jnp.int32(0))
-        assert np.isfinite(np.asarray(w)).all()
+        def spy(name, fn):
+            def wrapped(*a, **k):
+                calls.append(name)
+                return fn(*a, **k)
+            return wrapped
 
-    def test_explicit_pallas_cholesky_raises(self, tiny_blocks):
-        cfg, tmp = tiny_blocks
-        with pytest.raises(ValueError, match="not implemented by the Pallas"):
-            fit_blocks(cfg.replace(solver="cholesky", fitter_impl="pallas"),
-                       tmp, jnp.int32(0))
+        monkeypatch.setattr(ff, "filtered_fused",
+                            spy("fused", ff.filtered_fused))
+        monkeypatch.setattr(dn, "fit_blocks", spy("xla", dn.fit_blocks))
+        z = jnp.full((3, 48, 64), 0.5, jnp.float32)
+        _, out = denoise_frame(cfg, TemporalState.initial(cfg),
+                               FrameInputs(z, z, z, z), jnp.eye(4),
+                               jnp.zeros(2), jnp.int32(0))
+        assert calls == [impl]
+        assert np.isfinite(np.asarray(out["result"])).all()
+
+    def test_fused_kernel_honours_the_solver(self, tiny_blocks):
+        """The fused kernel's Cholesky and Householder solutions agree
+        like the XLA ones do, but are not the same computation."""
+        from bmfr_tpu.io.fixtures import synthetic_sequence
+        from bmfr_tpu.ops.fitter_fused import filtered_fused
+
+        cfg, _ = tiny_blocks
+        cfg = cfg.replace(fitter_impl="fused", pallas_interpret=True)
+        sc = synthetic_sequence(width=64, height=48, frames=1, seed=3)
+        planes = [jnp.asarray(to_chw(sc[k][0]))
+                  for k in ("normals", "positions", "noisy")]
+        out = {s: np.asarray(filtered_fused(cfg.replace(solver=s), *planes,
+                                            jnp.int32(0)))
+               for s in ("householder", "cholesky")}
+        d = np.abs(out["householder"] - out["cholesky"])
+        assert 0 < d.max() < 5e-2
 
 
-class TestFencedTiming:
-    def test_timed_force_returns_readback_checksum(self):
-        from bmfr_tpu.profiling import timed_force
+class TestDeviceTiming:
+    def test_timed_blocks_until_ready(self):
+        from bmfr_tpu.profiling import timed
 
         x = jnp.arange(12.0).reshape(3, 4)
-        secs, out, checksum = timed_force(lambda a: a * 2.0, x)
+        secs, out = timed(lambda a: a * 2.0, x)
         assert secs >= 0.0
-        # the checksum IS the device->host readback (the fence)
-        assert checksum == float(jnp.sum(out))
+        np.testing.assert_array_equal(np.asarray(out), np.asarray(x) * 2.0)
 
-    def test_bench_times_through_the_fence(self):
-        """The benchmark of record must not time via block_until_ready
-        (which may no-op on this stack — docs/PERF_NOTES.md)."""
+    def test_bench_times_with_block_until_ready(self):
+        """The benchmark times complete device work: every timed run goes
+        through profiling.timed (block_until_ready), and nothing is
+        fetched to the host as a fence."""
         import inspect
 
         import bench
+        from bmfr_tpu import profiling
 
+        assert "block_until_ready" in inspect.getsource(profiling.timed)
         src = inspect.getsource(bench.main)
-        assert "timed_force" in src
-        timing_loop = src.split("reps = ")[1]
-        assert "block_until_ready" not in timing_loop
+        assert "times = [timed(run, *args)[0]" in src
+        assert "jnp.sum" not in src
 
 
 class TestSmallBlockFitter:
     @pytest.mark.parametrize("block_edge", [8, 16, 32])
-    def test_pallas_fitter_matches_xla_for_any_block_edge(self, block_edge):
-        """block_pixels=64 (edge 8) is below the 128-lane export width the
-        round-1 kernel assumed (ADVICE low #4); interpret-mode must agree
-        with the XLA path for every supported edge."""
+    def test_fused_fitter_matches_xla_for_any_block_edge(self, block_edge):
+        """block_pixels=64 (edge 8) is below a warp's width of lanes per
+        column; interpret mode must agree with the XLA path for every
+        supported edge, weights and mins/maxs folded into the filtered
+        image."""
         from bmfr_tpu.io.fixtures import synthetic_sequence
-        from bmfr_tpu.ops.fitter_pallas import fit_blocks_pallas
+        from bmfr_tpu.ops.fitter_fused import filtered_fused
+        from bmfr_tpu.ops.weighted_sum import weighted_sum
 
         cfg = BMFRConfig(image_width=64, image_height=48,
                          position_limit_squared=0.03,
                          normal_limit_squared=0.5,
                          block_edge=block_edge).validate()
         sc = synthetic_sequence(width=64, height=48, frames=1, seed=5)
-        tmp = build_feature_blocks(
-            cfg, jnp.asarray(to_chw(sc["normals"][0])),
-            jnp.asarray(to_chw(sc["positions"][0])),
-            jnp.asarray(to_chw(sc["noisy"][0])), jnp.int32(0))
-        w_xla, mm_xla = fit_blocks(cfg, tmp, jnp.int32(0), impl="xla")
-        w_pal, mm_pal = fit_blocks_pallas(cfg, tmp, jnp.int32(0))
-        np.testing.assert_allclose(np.asarray(mm_pal), np.asarray(mm_xla),
-                                   rtol=1e-6, atol=1e-6)
+        n, p, a = (jnp.asarray(to_chw(sc[k][0]))
+                   for k in ("normals", "positions", "noisy"))
+        f = jnp.int32(0)
+        tmp = build_feature_blocks(cfg, n, p, a, f)
+        w, mm = fit_blocks(cfg, tmp, f)
+        want = weighted_sum(cfg, w, mm, n, p, a, f, feature_blocks=tmp)
+        got = filtered_fused(cfg.replace(fitter_impl="fused",
+                                         pallas_interpret=True), n, p, a, f)
         # (block_edge=8 gives 64x13 systems — markedly worse conditioned
         # than the default 1024x13, so summation-order noise is larger)
-        np.testing.assert_allclose(np.asarray(w_pal), np.asarray(w_xla),
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    rtol=2e-3, atol=1e-3)
 
 

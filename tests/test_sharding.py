@@ -52,9 +52,10 @@ def test_sharded_matches_single_device(cfg, variant):
     with mesh:
         sharded = np.asarray(
             denoise_scenes_sharded(cfg, mesh, inputs, cams, offs))
-    # single-device reference: plain vmap over scenes
-    single = np.asarray(jax.vmap(
-        lambda i, c, o: denoise_sequence(cfg, i, c, o))(inputs, cams, offs))
+    # single-device reference: the same jitted program, plain vmap over
+    # scenes
+    single = np.asarray(jax.jit(jax.vmap(
+        lambda i, c, o: denoise_sequence(cfg, i, c, o)))(inputs, cams, offs))
     # The two programs fuse differently, so the XLA paths carry ~1e-7 of
     # contraction-order noise. With residual_dtype=bfloat16 the TAA AABB
     # bound is quantized: noise that moves a pixel across the FIXED
